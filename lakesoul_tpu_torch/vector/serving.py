@@ -1,0 +1,205 @@
+"""Micro-batching ANN serving endpoint (the port of
+``lakesoul_tpu/vector/serving.py``).
+
+The batched search kernel reads every packed code once per CALL, not per
+query (``vector/kernels.py``), so the serving-side answer to "requests arrive
+one at a time" is the standard accelerator pattern: collect requests for up
+to ``max_wait_ms`` (or ``max_batch``), run ONE fused batch search, fan
+results back out.  Throughput then tracks the batch kernel; per-request
+latency is bounded by the wait window plus one device round trip.
+
+    ep = AnnEndpoint(index, SearchParams(top_k=10), max_wait_ms=2.0)
+    ids, dists = ep.search(q)          # blocking, thread-safe
+    fut = ep.submit(q); ids, d = fut.result()   # async
+    ep.stats()                         # requests / batches / mean batch size
+    ep.close()
+
+Overload: the pending queue is bounded (``max_pending``, default
+4 × ``max_batch``); beyond it :meth:`submit` raises a typed
+:class:`~lakesoul_tpu_torch.errors.OverloadedError` immediately — memory
+stays bounded under a client stampede and callers get a retryable signal.
+Per-request latency (submit → result) lands in the port's obs registry as the
+``lakesoul_ann_request_seconds`` histogram next to
+``lakesoul_ann_requests_total`` / ``lakesoul_ann_rejected_total``, so
+p50/p99 under load are one registry snapshot away.  The batch runs on the
+endpoint's worker thread; the kernels launch on that thread's current CUDA
+stream.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+
+import numpy as np
+
+from lakesoul_tpu_torch.errors import OverloadedError
+from lakesoul_tpu_torch.obs import registry
+from lakesoul_tpu_torch.vector.index import SearchParams
+
+
+class AnnEndpoint:
+    """Thread-safe micro-batching front end over one ``IvfRabitqIndex``."""
+
+    def __init__(
+        self,
+        index,
+        params: SearchParams | None = None,
+        *,
+        max_batch: int = 256,
+        max_wait_ms: float = 2.0,
+        max_pending: int | None = None,
+        name: str = "default",
+    ):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.name = name
+        self.index = index
+        self.params = params or SearchParams()
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1e3
+        self.max_pending = (
+            4 * max_batch if max_pending is None else max(1, int(max_pending))
+        )
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        # (query, future, submit time)
+        self._pending: list[tuple[np.ndarray, Future, float]] = []
+        self._closed = False
+        self._n_requests = 0
+        self._n_rejected = 0
+        self._n_batches = 0
+        self._n_batched_requests = 0
+        reg = registry()
+        self._c_requests = reg.counter("lakesoul_ann_requests_total")
+        self._c_rejected = reg.counter("lakesoul_ann_rejected_total")
+        # latency carries an endpoint= label so stats() quantiles stay
+        # per-endpoint: several endpoints in one process (serving + overload
+        # hammer + shard sweeps in the bench) must not contaminate each
+        # other's p50/p99 through the name-keyed registry
+        self._h_latency = reg.histogram(
+            "lakesoul_ann_request_seconds", endpoint=name
+        )
+        self._g_pending = reg.gauge("lakesoul_ann_pending")
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------ API
+    def submit(self, query: np.ndarray) -> Future:
+        """Enqueue one query; the Future resolves to (ids, dists).  Raises
+        :class:`OverloadedError` when the bounded pending queue is full."""
+        q = np.asarray(query, dtype=np.float32)
+        if q.ndim != 1:
+            raise ValueError("submit() takes a single [d] query")
+        dim = getattr(getattr(self.index, "config", None), "dim", None)
+        if dim is not None and len(q) != dim:
+            # reject here: a wrong-width query inside a batch would otherwise
+            # fail np.stack and take the whole batch down with it
+            raise ValueError(f"query has dim {len(q)}, index expects {dim}")
+        fut: Future = Future()
+        with self._wake:
+            if self._closed:
+                raise RuntimeError("endpoint is closed")
+            if len(self._pending) >= self.max_pending:
+                self._n_rejected += 1
+                self._c_rejected.inc()
+                raise OverloadedError(
+                    f"ann endpoint overloaded ({len(self._pending)} queued,"
+                    f" bound {self.max_pending}); retry later"
+                )
+            self._pending.append((q, fut, time.monotonic()))
+            self._n_requests += 1
+            self._c_requests.inc()
+            self._g_pending.inc()
+            self._wake.notify()
+        return fut
+
+    def search(self, query: np.ndarray, timeout: float | None = None):
+        """Blocking single-query search through the batching window."""
+        return self.submit(query).result(timeout)
+
+    def stats(self) -> dict:
+        # latency quantiles come straight from the registry histogram
+        # (Histogram.quantile), so callers stop digging through snapshot
+        # buckets; the histogram takes its own lock, so read it outside ours
+        p50 = self._h_latency.quantile(0.5)
+        p99 = self._h_latency.quantile(0.99)
+        with self._lock:
+            return {
+                "requests": self._n_requests,
+                "rejected": self._n_rejected,
+                "pending": len(self._pending),
+                "max_pending": self.max_pending,
+                "batches": self._n_batches,
+                "mean_batch": (
+                    self._n_batched_requests / self._n_batches if self._n_batches else 0.0
+                ),
+                "latency_p50": p50,
+                "latency_p99": p99,
+            }
+
+    def close(self) -> None:
+        """Drain pending requests, then stop the worker."""
+        with self._wake:
+            self._closed = True
+            self._wake.notify()
+        self._worker.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --------------------------------------------------------------- worker
+    def _execute(self, queries: list[np.ndarray]):
+        """Run ONE fused batch; returns (ids_list, dists_list) aligned with
+        the inputs."""
+        return self.index.batch_search(np.stack(queries), self.params)
+
+    def _take_batch(self) -> list[tuple[np.ndarray, Future, float]]:
+        """Block until work exists, then hold the window open for stragglers
+        up to max_wait_s (or until max_batch queue up)."""
+        with self._wake:
+            while not self._pending and not self._closed:
+                self._wake.wait()
+            if not self._pending:
+                return []  # closed and drained
+            deadline = time.monotonic() + self.max_wait_s
+            while len(self._pending) < self.max_batch and not self._closed:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._wake.wait(remaining)
+            batch = self._pending[: self.max_batch]
+            del self._pending[: self.max_batch]
+            self._g_pending.dec(len(batch))
+            return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._take_batch()
+            if not batch:
+                return
+            # everything below is fenced: the worker must survive ANY per-
+            # batch failure (a dead worker would hang every future request)
+            try:
+                ids, dists = self._execute([q for q, _, _ in batch])
+            except Exception as e:  # fan the failure out to every waiter
+                for _, fut, _ in batch:
+                    try:
+                        fut.set_exception(e)
+                    except Exception:  # cancelled/raced: nobody is waiting
+                        pass
+                continue
+            with self._lock:
+                self._n_batches += 1
+                self._n_batched_requests += len(batch)
+            done = time.monotonic()
+            for i, (_, fut, submitted) in enumerate(batch):
+                self._h_latency.observe(done - submitted)
+                try:
+                    fut.set_result((ids[i], dists[i]))
+                except Exception:  # cancelled between check and set: ignore
+                    pass

@@ -1,0 +1,107 @@
+"""The port stands alone: no module of ``lakesoul_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package.
+
+Two checks: a static scan of every import statement, and a subprocess in
+which a meta-path finder makes ``jax``, ``jaxlib`` and ``lakesoul_tpu``
+unimportable while every port module is imported and a tiny index is built
+and searched on the CPU.  It has to be a subprocess: ``tests/conftest.py``
+imports jax into every test process.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "lakesoul_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "lakesoul_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _blocked(name: str) -> bool:
+    return name.split(".")[0] in BLOCKED
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _blocked(n)]
+    assert not offenders, offenders
+
+
+def test_blocked_names_are_exact_roots():
+    assert _blocked("jax.numpy") and _blocked("lakesoul_tpu.vector")
+    assert not _blocked("lakesoul_tpu_torch.vector") and not _blocked("jaxtyping_free")
+
+
+_CHILD = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "lakesoul_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+
+    import numpy as np
+    import torch
+    import lakesoul_tpu_torch
+    from lakesoul_tpu_torch.errors import ConfigError
+
+    mods = [m.name for m in pkgutil.walk_packages(lakesoul_tpu_torch.__path__, "lakesoul_tpu_torch.")]
+    for name in mods:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401  (imports; main() is not run)
+
+    from lakesoul_tpu_torch.vector import IvfRabitqIndex, SearchParams, VectorIndexConfig
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(400, 24)).astype(np.float32)
+    cfg = VectorIndexConfig("v", 24, nlist=4)
+    idx = IvfRabitqIndex.train(x, np.arange(400), cfg, device="cpu")
+    ids, d = idx.search(x[7], SearchParams(top_k=3, nprobe=4, rerank_depth=400))
+    assert int(ids[0]) == 7, ids
+    idx.enable_device_cache()
+    ids_b, _ = idx.batch_search(x[:5], SearchParams(top_k=3, nprobe=4, rerank_depth=400))
+    assert [int(i[0]) for i in ids_b] == [0, 1, 2, 3, 4], ids_b
+    if not torch.cuda.is_available():
+        try:
+            IvfRabitqIndex(cfg)
+        except ConfigError:
+            pass
+        else:
+            raise AssertionError("device=None without CUDA must raise")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("ISOLATED", len(mods))
+    """
+)
+
+
+def test_port_imports_and_runs_with_jax_and_the_jax_package_blocked():
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED" in out.stdout
