@@ -3,24 +3,41 @@
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
-Drives the port's IVF-RaBitQ ANN serving path on the card and fails if any
-phase fails.  Each phase prints one JSON line with its own timing:
+Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
+serving path and the sharded ANN plane — and fails if any phase fails.
+Each phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with nvcc.
-3. kernels — holds each kernel against its plain PyTorch version at the
-             serving shapes and at ragged edges, every query tile of the
-             batch kernel included (rtol 1e-5, atol 1e-4: float32 sums
-             taken in another order), and times kernel, plain version, a
-             torch.matmul yardstick and the card's bound at batch_search's
-             256 queries and the endpoint's 16, and each query tile
-             against the others.
+2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
+             nvcc per source, all started together.
+3. kernels — holds each of the five kernels against its plain PyTorch
+             version at the serving shapes and at ragged edges, every query
+             tile of the batch kernel included (rtol 1e-5, atol 1e-4:
+             float32 sums taken in another order; for ``ragged_score`` the
+             rtol is of the magnitude of the terms an estimate sums, see
+             ``ragged_check``), and times kernel, plain
+             version, a PyTorch yardstick and the card's bound at the shapes
+             the paths give them (``ragged_score`` is timed in the plane
+             phase, on the plane's own item tables).
 4. slice   — builds a 1,000,000 x 512 index (nlist 1024, 1-bit, fht,
              raw vectors kept) from a seeded, L2-normalized mixture of 1024
-             gaussians, then batch_search, single search and an AnnEndpoint
-             under 16 client threads; recall@10 against an exact oracle on
-             the card; the kernel path held against the plain path on the
-             CPU; both kernels' launch counts on the main path.
+             gaussians, then batch_search, single search, per-cluster
+             packed scans and an AnnEndpoint under 16 client threads;
+             recall@10 against the exact ``bruteforce_topk`` oracle on the
+             card; the kernel path held against the plain path on the CPU.
+5. plane   — builds a 10,000,000 x 128 1-bit plane (nlist 512 a shard, a
+             768 MiB shard budget: 14 shards) with ``ShardedAnnBuilder`` from
+             a seeded mixture of 4096 centres (the repo's ANN scale leg,
+             ``benchmarks/micro.py``), opens it, runs a 1024-query
+             batch_search, a mixed-nprobe batch, a ShardedAnnEndpoint under
+             64 pipelining clients, and recall@10 against the
+             ``bruteforce_topk`` oracle over all 10M rows; holds
+             ``ragged_score`` against its plain version on every shard's
+             real item tables, and the plane's kernel path against the same
+             plane on the CPU (a 2-shard, 200k-row plane).
+
+Each path's kernel launch counts are set to 0 just before it is driven and
+read just after; every kernel must have run on its path.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -29,10 +46,13 @@ package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -42,14 +62,39 @@ SEED = 0
 DEVICE = "cuda"
 N_VECTORS, DIM, NLIST = 1_000_000, 512, 1024
 N_QUERIES, N_ORACLE, N_HOLD = 1024, 256, 32
+N_SCAN_QUERIES = 16  # queries whose probed clusters the slice scans one by one
 RTOL, ATOL = 1e-5, 1e-4
 RECALL_FLOOR = 0.5  # the reference's own bar at full probe (tests/test_e2e_glove.py:182)
+# the plane: the repo's ANN scale leg (benchmarks/micro.py:1203-1214, 1217-1231,
+# 1243-1244, 1323) with total_bits 1 instead of 4 (ex-codes are not ported)
+PLANE_ROWS, PLANE_DIM, PLANE_NLIST, PLANE_CENTERS = 10_000_000, 128, 512, 4096
+PLANE_BUDGET = 768 << 20
+PLANE_CHUNK = 500_000
+PLANE_NPROBE, PLANE_RERANK = 48, 64
+PLANE_MIXED = (48, 16, 32, 64)  # per-request nprobe in the mixed batch and at the endpoint
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_DEPTH = 64, 64, 16
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 1024, 3.0
+LEG_RECALL_FLOOR = 0.95  # micro.py's floor, set for 4-bit codes: printed, not enforced
+SMALL_PLANE_ROWS, SMALL_PLANE_SHARDS, N_PLANE_HOLD = 200_000, 2, 64
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s off the tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
-KERNEL_SOURCE = "lakesoul_tpu_torch/csrc/packed_dot.cu"
-LIBRARY_CALL = "torch.matmul over pre-unpacked f32 bits (yardstick, not used by the port)"
 BATCH_CASES = (1, 8, 13, 16, 17, 32, 33, 256)  # packed_dot_batch's nq: every tile, full and ragged
 TILE_SWEEP = (8, 16, 32, 256)  # nq at which every query tile is timed
+# name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
+KERNELS = {
+    "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
+                         "lakesoul_tpu/vector/kernels.py:158",
+                         "torch.matmul over pre-unpacked f32 bits"),
+    "packed_dot": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:147",
+                   "torch.matmul over pre-unpacked f32 bits"),
+    "packed_scan": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:40",
+                    "torch.mv over pre-unpacked f32 bits"),
+    "bruteforce_distances": ("lakesoul_tpu_torch/csrc/bruteforce.cu",
+                             "lakesoul_tpu/vector/kernels.py:455", "torch.mv(x, q)"),
+    "ragged_score": ("lakesoul_tpu_torch/csrc/ragged_score.cu",
+                     "lakesoul_tpu/annplane/ragged.py:89",
+                     "torch.bmm over the gathered tiles and query rows, gather included"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,21 +124,105 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(torch, got, want) -> float:
+def max_err(torch, got, want, scale=None) -> float:
+    """Max |got - want|, after requiring |got - want| <= ATOL + RTOL·scale,
+    where ``scale`` (default |want|) is the magnitude of the float32 terms
+    summed into each value."""
     torch.cuda.synchronize()
     require(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     require(bool(torch.isfinite(got).all()), "non-finite kernel output")
-    require(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-            f"kernel disagrees with its plain version (max abs err {(got - want).abs().max().item()})")
-    return (got - want).abs().max().item() if got.numel() else 0.0
+    err = (got - want).abs()
+    scale = want.abs() if scale is None else scale
+    require(bool((err <= ATOL + RTOL * scale).all()),
+            f"kernel disagrees with its plain version (max abs err {err.max().item()})")
+    return err.max().item() if got.numel() else 0.0
 
 
-def phase_kernels(torch, K) -> dict:
+def wrappers(K, R) -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    return {"packed_dot_batch": K.packed_dot_batch, "packed_dot": K.packed_dot,
+            "packed_scan": K.packed_scan, "bruteforce_distances": K.bruteforce_distances,
+            "ragged_score": R.ragged_score}
+
+
+def reset_launches(K, R) -> None:
+    for w in wrappers(K, R).values():
+        w.launches = 0
+
+
+def read_launches(K, R) -> dict:
+    return {name: w.launches for name, w in wrappers(K, R).items()}
+
+
+def ragged_plan(torch, R, rng, d: int, dev, *, nlist=40, nq=37, tile=128):
+    """A seeded shard in the resident layout (random cluster sizes, some 0,
+    then one tile of pad rows at the end) and a ragged probe plan over it,
+    through ``plan_items``."""
+    counts = rng.integers(0, 700, nlist)
+    counts[::7] = 0
+    padded = (counts + tile - 1) // tile * tile
+    n_pad = int(padded.sum()) + tile
+    tile_start = np.concatenate([[0], np.cumsum(padded[:-1] // tile)]).astype(np.int32)
+    tile_count = (padded // tile).astype(np.int32)
+    codes = torch.zeros((n_pad, d), device=dev)
+    a = torch.zeros(n_pad, device=dev)
+    b = torch.full((n_pad,), float(R.PAD_B), device=dev)
+    h = torch.zeros(n_pad, device=dev)
+    for c in range(nlist):
+        rs, n_c = int(tile_start[c]) * tile, int(counts[c])
+        codes[rs:rs + n_c] = torch.from_numpy(rng.integers(0, 2, (n_c, d)).astype(np.float32))
+        a[rs:rs + n_c] = torch.from_numpy(rng.random(n_c).astype(np.float32) + 0.5)
+        b[rs:rs + n_c] = torch.from_numpy(rng.random(n_c).astype(np.float32) * 10)
+        h[rs:rs + n_c] = torch.from_numpy(rng.random(n_c).astype(np.float32))
+    pairs_q, pairs_c = [], []
+    for q in range(nq):
+        probed = np.sort(rng.choice(nlist, rng.integers(1, nlist), replace=False))
+        pairs_q += [q] * len(probed)
+        pairs_c += probed.tolist()
+    csq = rng.random(len(pairs_q)).astype(np.float32) * 5
+    csum = rng.random(len(pairs_q)).astype(np.float32)
+    items = R.plan_items(pairs_q, pairs_c, csq, csum, tile_start, tile_count)
+    q_glob = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32) / d**0.5).to(dev)
+    return items, q_glob, codes, a, b, h
+
+
+def ragged_check(torch, R, items, q_glob, codes, a, b, h, tile=128) -> float:
+    """``ragged_score`` against ``ragged_score_torch`` on the same tables.
+    Each estimate b + csq - h·csum - a·g is a difference of terms (on the
+    plane ~3e3 for |a·g| and |b|) that cancel, so the float32 error of two
+    summation orders scales with the terms, not with the estimate:
+    |kernel - plain| <= ATOL + RTOL·(|b| + |csq| + |h·csum| + |a·g|)."""
+    dev = codes.device
+    iq, it, csq, csum = (torch.from_numpy(np.asarray(x)).to(dev) for x in items)
+    want = R.ragged_score_torch(iq, it, csq, csum, q_glob, codes, a, b, h, tile=tile)
+    rows = it.long()[:, None] * tile + torch.arange(tile, device=dev)
+    known = b[rows] + csq[:, None] - h[rows] * csum[:, None]  # want = known - a·g
+    scale = b[rows].abs() + csq.abs()[:, None] + (h[rows] * csum[:, None]).abs() \
+        + (known - want).abs()
+    got = R.ragged_score(*items, q_glob, codes, a, b, h, tile=tile)
+    return max_err(torch, got, want, scale)
+
+
+def ragged_bound(items, q_glob, codes, tile=128) -> tuple[float, str, dict]:
+    """The least time for ``ragged_score`` on these tables: each input byte
+    read once (the tiles the items name, their a/b/h, the item tables, the
+    query rows), the output written once; 2·M·tile·d FLOP."""
+    m, d = len(items[0]), codes.shape[1]
+    tiles = len(np.unique(items[1]))
+    n_bytes = tiles * tile * (d + 3) * 4 + m * 16 + q_glob.shape[0] * d * 4 + m * tile * 4
+    reread = m * tile * d * 4 + 3 * m * tile * 4 + m * tile * 4 + m * d * 4
+    ms, by = bound(n_bytes, 2.0 * m * tile * d)
+    return ms, by, {"items": m, "tiles": tiles, "queries": int(q_glob.shape[0]), "d": d,
+                    "bytes": n_bytes, "bytes_reread_per_item": reread,
+                    "bound_ms_reread_per_item": bound(reread, 0.0)[0]}
+
+
+def phase_kernels(torch, K, R) -> dict:
     """Each kernel against its plain version; timings at the serving shapes."""
     t0 = time.perf_counter()
     dev = DEVICE
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"packed_dot_batch": 0.0, "packed_dot": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     cases = 0
     for n in (1_048_576, 1000):
         for d in (512, 100):
@@ -154,8 +283,69 @@ def phase_kernels(torch, K) -> dict:
             row[f"qg{qg}_ms"] = time_ms(torch, lambda: K.packed_dot_batch(codes, qn, query_group=qg), 20)
         tiles[f"nq{nq}"] = row
         del want
+    del codes
+
+    # packed_scan: one cluster's estimate, at the cluster sizes of the slice
+    # and at a whole 1M-row code set
+    for n in (1, 1000, 1_048_576):
+        for d in (100, 512):
+            c = torch.randint(0, 256, (n, (d + 7) // 8), dtype=torch.uint8, device=dev, generator=g)
+            nm = torch.rand(n, device=dev, generator=g) * 2
+            fc = torch.rand(n, device=dev, generator=g) * 0.5 + 0.5
+            q1 = torch.randn(d, device=dev, generator=g) / d**0.5
+            e = max_err(torch, K.packed_scan(c, nm, fc, q1, d=d),
+                        K.packed_scan_torch(c, nm, fc, q1, d=d))
+            errs["packed_scan"] = max(errs["packed_scan"], e)
+            cases += 1
+    n, d = 1_048_576, DIM
+    bits = K.unpack_bits(c, d)
+    b_ms, b_by = bound(n * d // 8 + d * 4 + 3 * n * 4, 2.0 * n * d)
+    rec["packed_scan_1m"] = {
+        "ms": time_ms(torch, lambda: K.packed_scan(c, nm, fc, q1, d=d), 200),
+        "plain_ms": time_ms(torch, lambda: K.packed_scan_torch(c, nm, fc, q1, d=d), 20),
+        "library_ms": time_ms(torch, lambda: torch.mv(bits, q1), 100),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d // 8, d],
+    }
+    del c, bits
+
+    # bruteforce: small and ragged widths, then the plane oracle's shape
+    for n, dd in [(n, dd) for n in (1, 1000) for dd in (100, 128, 512)] + [(10_000_000, 128)]:
+        x = torch.randn(n, dd, device=dev, generator=g)
+        qx = torch.randn(dd, device=dev, generator=g)
+        e = max_err(torch, K.bruteforce_distances(x, qx), K.bruteforce_distances_torch(x, qx))
+        errs["bruteforce_distances"] = max(errs["bruteforce_distances"], e)
+        cases += 1
+    b_ms, b_by = bound(n * dd * 4 + dd * 4 + n * 4, 4.0 * n * dd)
+    rec["bruteforce_distances"] = {
+        "ms": time_ms(torch, lambda: K.bruteforce_distances(x, qx), 20),
+        "plain_ms": time_ms(torch, lambda: K.bruteforce_distances_torch(x, qx), 5),
+        "library_ms": time_ms(torch, lambda: torch.mv(x, qx), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, dd],
+    }
+    del x
+
+    # ragged_score: seeded ragged plans over random cluster sizes (some 0),
+    # M = 1 / Q = 1, a pad item, and an item on the last tile of the codes
+    rng = np.random.default_rng(SEED)
+    for d in (128, 512, 100):
+        items, q_glob, codes, a, b, h = ragged_plan(torch, R, rng, d, dev)
+        errs["ragged_score"] = max(errs["ragged_score"],
+                                   ragged_check(torch, R, items, q_glob, codes, a, b, h))
+        # M = 1 and Q = 1: the last real tile, then the pad tile at the end
+        # of the codes, whose every row must score as a hole
+        pad_tile = len(codes) // 128 - 1
+        for tile_i in (pad_tile - 1, pad_tile):
+            one = (np.zeros(1, np.int32), np.array([tile_i], np.int32),
+                   np.ones(1, np.float32), np.full(1, 0.5, np.float32))
+            q1 = q_glob[:1].contiguous()
+            errs["ragged_score"] = max(errs["ragged_score"],
+                                       ragged_check(torch, R, one, q1, codes, a, b, h))
+        require(bool((R.ragged_score(*one, q1, codes, a, b, h) >= float(R.PAD_EST_VALID)).all()),
+                "a pad row scored below PAD_EST_VALID")
+        cases += 3
     emit("kernels", seconds=time.perf_counter() - t0, cases=cases, max_abs_err=errs,
-         timings=rec, batch_tiles=tiles, library_call=LIBRARY_CALL)
+         timings=rec, batch_tiles=tiles,
+         library_calls={k: v[2] for k, v in KERNELS.items()})
     return {"errs": errs, "timings": rec}
 
 
@@ -218,7 +408,25 @@ def same_topk(ids_a, d_a, ids_b, d_b) -> bool:
     return True
 
 
-def phase_slice(torch, K) -> dict:
+def cluster_scans(torch, K, index, queries, nprobe: int) -> list:
+    """Each query's probed clusters scanned one by one, as the reference's
+    per-cluster entry point ``packed_scan`` does: the cluster's codes
+    against the rotated query residual P(query - centroid).  Returns the
+    (codes, norms, factors, residual, estimates) of every scan."""
+    d = index.quantizer.padded_dim
+    out = []
+    for q in queries:
+        probe = index._probe(q, nprobe)
+        for c in probe.tolist():
+            cl = index.clusters[c]
+            if len(cl.ids):
+                r = index.quantizer.rotate_query(q, index.centroids[c]).contiguous()
+                out.append((cl.codes, cl.norms, cl.factors, r,
+                            K.packed_scan(cl.codes, cl.norms, cl.factors, r, d=d)))
+    return out
+
+
+def phase_slice(torch, K, R) -> dict:
     from lakesoul_tpu_torch.vector import AnnEndpoint, IvfRabitqIndex, SearchParams, VectorIndexConfig
     from lakesoul_tpu_torch.vector.oracle import recall_at_k
 
@@ -233,9 +441,8 @@ def phase_slice(torch, K) -> dict:
     full = SearchParams(top_k=10, nprobe=NLIST, rerank_depth=100)
     torch.cuda.reset_peak_memory_stats()
 
-    # ---- the main path, counted: build → search → batch → serve
-    K.packed_dot.launches = 0
-    K.packed_dot_batch.launches = 0
+    # ---- the main path, counted: build → search → batch → scan → serve → oracle
+    reset_launches(K, R)
     t = time.perf_counter()
     index = IvfRabitqIndex.train(x, ids, cfg, keep_raw=True)  # device=None: the card
     torch.cuda.synchronize()
@@ -258,6 +465,10 @@ def phase_slice(torch, K) -> dict:
         s_ids, s_d = index.search(q, params)
         single_ms.append((time.perf_counter() - t) * 1e3)
         require(len(s_ids) == 10, "resident search returned fewer than 10")
+    t = time.perf_counter()
+    scans = cluster_scans(torch, K, index, queries[:N_SCAN_QUERIES], params.nprobe)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t
     served, errors = {}, []
     with AnnEndpoint(index, params, max_batch=256, max_wait_ms=5) as ep:
         def client(c):
@@ -275,11 +486,16 @@ def phase_slice(torch, K) -> dict:
             th.join(300)
         serve_s = time.perf_counter() - t
         stats = ep.stats()
-    launches = {"packed_dot": K.packed_dot.launches, "packed_dot_batch": K.packed_dot_batch.launches}
+    # exact oracle on the card: one bruteforce_topk launch per oracle query
+    t = time.perf_counter()
+    top = torch.stack([K.bruteforce_topk(x, qo, 10).indices for qo in queries[:N_ORACLE]])
+    oracle_s = time.perf_counter() - t
+    launches = read_launches(K, R)
     # ---- end of the counted main path
 
     require(not errors and len(served) == 256, f"serving failed: {errors[:3]}")
-    require(all(launches.values()), f"a kernel never ran on the main path: {launches}")
+    on_path = ("packed_dot", "packed_dot_batch", "packed_scan", "bruteforce_distances")
+    require(all(launches[k] for k in on_path), f"a kernel never ran on the main path: {launches}")
     for i, (ids_i, d_i) in served.items():
         require(same_topk(b_ids[i], b_d[i], ids_i, d_i), f"endpoint result {i} != batch_search")
     require(all(len(r) == 10 and np.isfinite(d).all() for r, d in zip(b_ids, b_d)),
@@ -288,12 +504,7 @@ def phase_slice(torch, K) -> dict:
     prof_batch = profile(torch, lambda: index.batch_search(qs_np[:256], params))
     prof_single = profile(torch, lambda: index.search(qs_np[0], params))
 
-    # exact oracle on the card: one gram matmul over N_ORACLE queries
-    qo = queries[:N_ORACLE]
-    d2 = (qo * qo).sum(1, keepdim=True) - 2.0 * qo @ x.T + (x * x).sum(1)[None, :]
-    top = torch.topk(d2, 10, dim=1, largest=False).indices.cpu().numpy()
-    del d2
-    truth = [set(ids[row].tolist()) for row in top]
+    truth = [set(ids[row].tolist()) for row in top.cpu().numpy()]
     recall = recall_at_k(truth, b_ids[:N_ORACLE])
     recall_full = recall_at_k(truth, f_ids)
     require(recall_full >= RECALL_FLOOR, f"recall@10 at nprobe=nlist {recall_full} < {RECALL_FLOOR}")
@@ -311,7 +522,23 @@ def phase_slice(torch, K) -> dict:
         ),
         "packed_dot": max_err(torch, K.packed_dot(bundle["codes"], q_glob[0]),
                               K.packed_dot_torch(bundle["codes"], q_glob[0])),
+        "packed_scan": max(max_err(torch, est, K.packed_scan_torch(c, nm, fc, r, d=DIM))
+                           for c, nm, fc, r, est in scans),
+        "bruteforce_distances": max_err(torch, K.bruteforce_distances(x, queries[0]),
+                                        K.bruteforce_distances_torch(x, queries[0])),
     }
+    # packed_scan timed at the largest cluster the scans met
+    c, nm, fc, r, _ = max(scans, key=lambda sc: len(sc[0]))
+    bits = K.unpack_bits(c, DIM)
+    n_c = len(c)
+    b_ms, b_by = bound(n_c * DIM // 8 + DIM * 4 + 3 * n_c * 4, 2.0 * n_c * DIM)
+    scan_timing = {
+        "ms": time_ms(torch, lambda: K.packed_scan(c, nm, fc, r, d=DIM), 200),
+        "plain_ms": time_ms(torch, lambda: K.packed_scan_torch(c, nm, fc, r, d=DIM), 200),
+        "library_ms": time_ms(torch, lambda: torch.mv(bits, r), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n_c, DIM // 8, DIM],
+    }
+    del scans, bits
 
     # the kernel path against the plain path: the same index on the CPU
     t = time.perf_counter()
@@ -332,10 +559,228 @@ def phase_slice(torch, K) -> dict:
         serving_p99_s=stats["latency_p99"], serving_mean_batch=stats["mean_batch"],
         serving_batches=stats["batches"], recall_at_10_nprobe32=recall,
         recall_at_10_full_probe=recall_full, peak_device_gb=peak_gb,
+        cluster_scans=launches["packed_scan"], cluster_scan_s=scan_s, oracle_s=oracle_s,
         launches=launches, main_path_max_abs_err=errs, plain_path_held=f"{held}/{N_HOLD}",
         plain_path_s=hold_s, profile_batch_256=prof_batch, profile_single=prof_single,
+        packed_scan_timing=scan_timing,
     )
-    return {"launches": launches, "errs": errs}
+    return {"launches": launches, "errs": errs, "packed_scan_timing": scan_timing}
+
+
+def make_plane_data(torch, dev, n: int, n_q: int):
+    """The scale leg's clustered corpus, generated on the card: 4096 centres
+    of scale 3.0 plus unit noise (``_ann_scale_corpus_chunks``), and fresh
+    draws of the same mixture as queries."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    centers = torch.randn(PLANE_CENTERS, PLANE_DIM, device=dev, generator=g) * 3.0
+    x = torch.empty((n, PLANE_DIM), device=dev)
+    for lo in range(0, n, PLANE_CHUNK):
+        hi = min(n, lo + PLANE_CHUNK)
+        comp = torch.randint(0, PLANE_CENTERS, (hi - lo,), device=dev, generator=g)
+        x[lo:hi] = centers[comp] + torch.randn(hi - lo, PLANE_DIM, device=dev, generator=g)
+    comp = torch.randint(0, PLANE_CENTERS, (n_q,), device=dev, generator=g)
+    return x, centers[comp] + torch.randn(n_q, PLANE_DIM, device=dev, generator=g)
+
+
+def plane_stream(x, n: int):
+    for lo in range(0, n, PLANE_CHUNK):
+        hi = min(n, lo + PLANE_CHUNK)
+        yield x[lo:hi], np.arange(lo, hi, dtype=np.uint64)
+
+
+def serve_plane(ep, qs_np) -> tuple[dict, list, float]:
+    """``SERVE_CLIENTS`` threads, each keeping ``SERVE_DEPTH`` submits in
+    flight (``_ann_serve_qps``), every request with its own nprobe."""
+    served, errors = {}, []
+    lock = threading.Lock()
+
+    def client(ci):
+        try:
+            inflight = collections.deque()
+            for j in range(SERVE_PER_CLIENT):
+                qi, npb = (ci * 31 + j) % len(qs_np), PLANE_MIXED[(ci + j) % len(PLANE_MIXED)]
+                inflight.append(((qi, npb), ep.submit(qs_np[qi], nprobe=npb)))
+                if len(inflight) >= SERVE_DEPTH:
+                    key, fut = inflight.popleft()
+                    res = fut.result(timeout=300)
+                    with lock:
+                        served[key] = res
+            while inflight:
+                key, fut = inflight.popleft()
+                res = fut.result(timeout=300)
+                with lock:
+                    served[key] = res
+        except Exception as e:  # surfaced by the caller: a failed client fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return served, errors, time.perf_counter() - t
+
+
+def phase_plane(torch, K, R) -> dict:
+    from lakesoul_tpu_torch.annplane import (
+        AnnPlane,
+        AnnPlaneConfig,
+        ShardedAnnBuilder,
+        ShardedAnnEndpoint,
+    )
+    from lakesoul_tpu_torch.vector import SearchParams, VectorIndexConfig
+    from lakesoul_tpu_torch.vector.oracle import recall_at_k
+
+    t0 = time.perf_counter()
+    dev = DEVICE
+    x, queries = make_plane_data(torch, dev, PLANE_ROWS, N_QUERIES)
+    torch.cuda.synchronize()
+    qs_np = queries.cpu().numpy()
+    index_cfg = VectorIndexConfig("emb", PLANE_DIM, nlist=PLANE_NLIST, total_bits=1, seed=SEED)
+    cfg = AnnPlaneConfig(index=index_cfg, shard_budget_bytes=PLANE_BUDGET, keep_raw=True)
+    params = SearchParams(top_k=10, nprobe=PLANE_NPROBE, rerank_depth=PLANE_RERANK)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_plane_")
+    try:
+        root = os.path.join(workdir, "plane")
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path, counted: build → open → batch → serve → oracle
+        reset_launches(K, R)
+        t = time.perf_counter()
+        manifest = ShardedAnnBuilder(root, cfg).build(plane_stream(x, PLANE_ROWS))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        require(manifest["complete"] and manifest["total_rows"] == PLANE_ROWS,
+                "the plane lost rows")
+        t = time.perf_counter()
+        plane = AnnPlane.open(root)  # device=None: the card
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t
+        require(plane.num_vectors == PLANE_ROWS, "the opened plane lost rows")
+        plane.batch_search(qs_np[:64], params)  # warm-up
+        t = time.perf_counter()
+        b_ids, b_d = plane.batch_search(qs_np, params)
+        batch_s = time.perf_counter() - t
+        mixed = np.array([PLANE_MIXED[i % len(PLANE_MIXED)] for i in range(64)], np.int64)
+        m_ids, m_d = plane.batch_search(qs_np[:64], params, nprobes=mixed)
+        single = [plane.search(qs_np[i], SearchParams(top_k=10, nprobe=int(mixed[i]),
+                                                      rerank_depth=PLANE_RERANK))
+                  for i in range(64)]
+        with ShardedAnnEndpoint(plane, params, max_batch=SERVE_MAX_BATCH,
+                                max_wait_ms=SERVE_WAIT_MS,
+                                max_pending=2 * SERVE_CLIENTS * SERVE_DEPTH,
+                                name="chip_smoke_plane") as ep:
+            ep.search(qs_np[0])  # warm the dispatch path
+            served, errors, serve_s = serve_plane(ep, qs_np)
+            stats = ep.stats()
+        t = time.perf_counter()
+        top = torch.stack([K.bruteforce_topk(x, qo, 10).indices for qo in queries[:N_ORACLE]])
+        oracle_s = time.perf_counter() - t
+        launches = read_launches(K, R)
+        # ---- end of the counted main path
+
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(launches["ragged_score"] > 0 and launches["bruteforce_distances"] > 0,
+                f"a kernel never ran on the plane's path: {launches}")
+        require(all(len(r) == 10 and np.isfinite(d).all() for r, d in zip(b_ids, b_d)),
+                "batch_search returned short or non-finite results")
+        for i in range(64):
+            require(same_topk(single[i][0], single[i][1], m_ids[i], m_d[i]),
+                    f"mixed-nprobe batch result {i} != its own search")
+        n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+        require(not errors and stats["requests"] == n_req + 1, f"serving failed: {errors[:3]}")
+        keys = sorted(served)
+        want_ids, want_d = [], []
+        for lo in range(0, len(keys), SERVE_MAX_BATCH):
+            chunk = keys[lo:lo + SERVE_MAX_BATCH]
+            w = plane.batch_search(qs_np[[k[0] for k in chunk]], params,
+                                   nprobes=np.array([k[1] for k in chunk]))
+            want_ids += w[0]
+            want_d += w[1]
+        for key, wi, wd in zip(keys, want_ids, want_d):
+            require(same_topk(wi, wd, *served[key]), f"endpoint result {key} != batch_search")
+        truth = [set(row.tolist()) for row in top.cpu().numpy()]
+        recall = recall_at_k(truth, b_ids[:N_ORACLE])
+        require(recall >= RECALL_FLOOR, f"plane recall@10 {recall} < {RECALL_FLOOR}")
+        prof = profile(torch, lambda: plane.batch_search(qs_np, params))
+
+        # ragged_score on every shard's real item tables from one 256-query
+        # batch, against its plain version on the card; timed on the 1024-
+        # query batch's tables of the shard with the most items
+        qt = torch.as_tensor(qs_np, device=dev)
+
+        def shard_tables(nq):
+            nprobes = np.full(nq, PLANE_NPROBE, np.int64)
+            pq, pgc, csq, csum, q_glob = plane.probe_pairs(qt[:nq], nprobes)
+            sel = plane.shard_of[pgc]
+            for si, sh in enumerate(plane.shards):
+                m = sel == si
+                yield sh, q_glob, R.plan_items(pq[m], plane.local_cluster[pgc[m]], csq[m],
+                                               csum[m], sh.tile_start, sh.tile_count)
+
+        ragged_err, ragged_items = 0.0, 0
+        for sh, q_glob, items in shard_tables(N_ORACLE):
+            ragged_err = max(ragged_err, ragged_check(torch, R, items, q_glob, sh.codes, sh.a,
+                                                      sh.b, sh.h))
+            ragged_items += len(items[0])
+        sh, q_glob, items = max(shard_tables(N_QUERIES), key=lambda t: len(t[2][0]))
+        t_items = [torch.from_numpy(np.asarray(v)).to(dev) for v in items]
+        b_ms, b_by, b_work = ragged_bound(items, q_glob, sh.codes)
+        tiles_view = sh.codes.view(-1, 128, PLANE_DIM)
+        ragged_timing = {
+            "ms": time_ms(torch, lambda: R.ragged_score(*items, q_glob, sh.codes, sh.a, sh.b,
+                                                        sh.h), 20),
+            "plain_ms": time_ms(torch, lambda: R.ragged_score_torch(
+                *t_items, q_glob, sh.codes, sh.a, sh.b, sh.h), 5),
+            "library_ms": time_ms(torch, lambda: torch.bmm(
+                tiles_view[t_items[1].long()], q_glob[t_items[0].long(), :, None]), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": b_work,
+        }
+        del t_items, tiles_view, plane
+
+        # the kernel path against the plain path: a small plane, built on the
+        # card, opened on the card and on the CPU
+        small_root = os.path.join(workdir, "small")
+        small_cfg = AnnPlaneConfig(
+            index=index_cfg, keep_raw=True,
+            shard_budget_bytes=SMALL_PLANE_ROWS // SMALL_PLANE_SHARDS * cfg.bytes_per_vector(),
+        )
+        ShardedAnnBuilder(small_root, small_cfg).build(plane_stream(x, SMALL_PLANE_ROWS))
+        t = time.perf_counter()
+        on_card, on_cpu = AnnPlane.open(small_root), AnnPlane.open(small_root, device="cpu")
+        require(len(on_card.shards) == SMALL_PLANE_SHARDS, "the small plane's shard count")
+        g_ids, g_d = on_card.batch_search(qs_np[:N_PLANE_HOLD], params)
+        c_ids, c_d = on_cpu.batch_search(qs_np[:N_PLANE_HOLD], params)
+        held = sum(same_topk(c_ids[i], c_d[i], g_ids[i], g_d[i]) for i in range(N_PLANE_HOLD))
+        hold_s = time.perf_counter() - t
+        require(held == N_PLANE_HOLD,
+                f"plane kernel path != plain path on {N_PLANE_HOLD - held} of {N_PLANE_HOLD}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    emit(
+        "plane", seconds=time.perf_counter() - t0, vectors=PLANE_ROWS, dim=PLANE_DIM,
+        nlist_per_shard=PLANE_NLIST, shards=len(manifest["shards"]),
+        rows_per_shard=manifest["rows_per_shard"], shard_budget_bytes=PLANE_BUDGET,
+        reduced={"total_bits": "1, from the scale leg's 4: ex-codes are not ported",
+                 "corpus": "generated on the card, not written to and scanned from a table"},
+        build_s=build_s, open_s=open_s, peak_device_gb=peak_gb,
+        batch_qps=N_QUERIES / batch_s, batch_s=batch_s, nprobe=PLANE_NPROBE,
+        rerank_depth=PLANE_RERANK, mixed_nprobe_batch_held="64/64",
+        serving_qps=n_req / serve_s, serving_p50_s=stats["latency_p50"],
+        serving_p99_s=stats["latency_p99"], serving_mean_batch=stats["mean_batch"],
+        serving_batches=stats["batches"], serving_requests=n_req,
+        endpoint_held=f"{len(keys)}/{len(keys)} distinct (query, nprobe)",
+        recall_at_10=recall, recall_floor=RECALL_FLOOR,
+        leg_recall_floor_not_enforced=LEG_RECALL_FLOOR, oracle_s=oracle_s,
+        launches=launches, ragged_main_path_max_abs_err=ragged_err,
+        ragged_items_checked=ragged_items, ragged_timing=ragged_timing,
+        plain_path_held=f"{held}/{N_PLANE_HOLD}", plain_path_s=hold_s,
+        profile_batch_1024=prof,
+    )
+    return {"launches": launches, "errs": {"ragged_score": ragged_err},
+            "ragged_timing": ragged_timing}
 
 
 def main() -> int:
@@ -346,6 +791,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lakesoul_tpu_torch import _build
+    from lakesoul_tpu_torch.annplane import ragged as R
     from lakesoul_tpu_torch.vector import kernels as K
 
     # 1. device: full float32 in every matmul, stated and set
@@ -368,21 +814,26 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t, sources=list(_build.SOURCES),
          built=sorted(report), ptxas=ptxas)
 
-    kernels = phase_kernels(torch, K)
-    sl = phase_slice(torch, K)
+    kernels = phase_kernels(torch, K, R)
+    sl = phase_slice(torch, K, R)
+    torch.cuda.empty_cache()
+    pl = phase_plane(torch, K, R)
 
-    names = {"packed_dot_batch": "lakesoul_tpu/vector/kernels.py:158",
-             "packed_dot": "lakesoul_tpu/vector/kernels.py:147"}
-    record = [
-        {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-            "launches": sl["launches"][name],
-            "max_abs_err": max(kernels["errs"][name], sl["errs"][name]),
-            **kernels["timings"][name],  # ms, plain_ms, bound_ms, bound_by, library_ms, shape
-            "library_call": LIBRARY_CALL,
-        }
-        for name, replaces in names.items()
-    ]
+    timings = {**kernels["timings"], "packed_scan": sl["packed_scan_timing"],
+               "ragged_score": pl["ragged_timing"]}
+    record = []
+    for name, (source, replaces, library_call) in KERNELS.items():
+        t = timings[name]
+        record.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sl["launches"][name] + pl["launches"][name],
+            "max_abs_err": max(kernels["errs"][name], sl["errs"].get(name, 0.0),
+                               pl["errs"].get(name, 0.0)),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "library_call": library_call,
+        })
+    require(all(r["launches"] > 0 for r in record), "a kernel never ran on its path")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

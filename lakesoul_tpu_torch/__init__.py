@@ -7,8 +7,9 @@ mirrors the JAX package, so ``lakesoul_tpu_torch/vector/index.py`` is the
 counterpart of ``lakesoul_tpu/vector/index.py``.
 
 Ported so far: the single-index IVF-RaBitQ ANN serving path
-(:mod:`lakesoul_tpu_torch.vector`), with the packed 1-bit code × query
-products as CUDA kernels written for Hopper (``csrc/packed_dot.cu``).
+(:mod:`lakesoul_tpu_torch.vector`) and the sharded ANN plane
+(:mod:`lakesoul_tpu_torch.annplane`), with every kernel the JAX package
+wrote in Pallas as a CUDA kernel written for Hopper (``csrc/``).
 
 Entry points take ``device=None`` to mean the CUDA card and raise when there
 is none; the CPU is used only when a caller passes ``device="cpu"``.

@@ -10,6 +10,10 @@ name carries a hash of its source and flags, so an edited source is rebuilt
 and a stale library is never loaded.  :func:`build` starts one ``nvcc`` per
 source, all together, and waits for them all.
 
+Every library exports ``ls_cuda_error_string`` (``csrc/ls_common.cuh``),
+and :func:`launch` calls one of its entry points on the current stream and
+raises on the ``cudaError_t`` it returns.
+
 Nothing CUDA-specific happens at import time: the CPU tests import this
 module and never call it.
 """
@@ -25,11 +29,13 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from lakesoul_tpu_torch.errors import ConfigError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("packed_dot",)
+SOURCES = ("packed_dot", "ragged_score", "bruteforce")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,8 +56,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by a hash of source + flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by a hash of the source, the
+    shared headers and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -91,4 +100,17 @@ def load(name: str) -> ctypes.CDLL:
     same source at once."""
     with _lock:
         build([name])
-        return ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+    lib.ls_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ls_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
+    """Call ``lib.fn(*args, stream)`` on ``device``'s current stream; raise
+    if the launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err:
+        raise RuntimeError(f"{fn} launch failed: {lib.ls_cuda_error_string(err).decode()}")

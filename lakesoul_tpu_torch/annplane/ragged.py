@@ -1,0 +1,192 @@
+"""Ragged query batching for multi-shard ANN scoring (the port of
+``lakesoul_tpu/annplane/ragged.py``).
+
+A serving micro-batch holds Q queries with DIFFERENT ``nprobe`` and
+different probed-cluster sets.  It is flattened into (query, cluster-tile)
+WORK ITEMS: :func:`plan_items` turns the (query, cluster) probe pairs into
+item tables on the host, :func:`ragged_score` scores every item's tile
+against its query row on the device, and :func:`items_topk` takes each
+query's top-``s`` rows — no (rows × queries) rectangle ever exists.
+
+Estimator (global query frame, shared with ``vector/kernels.py``): per row
+    est = b + csq - h * csum - a * g,      g = codes_f · P(query)
+where ``codes_f``/``a``/``b``/``h`` are per-row constants
+(:func:`fold_cluster`) and ``csq``/``csum`` per-(query, cluster) scalars.
+
+:func:`ragged_score` launches the CUDA kernel ``csrc/ragged_score.cu`` for
+tensors on a CUDA device, which replaces ``ragged_score_pallas`` →
+``_ragged_score_kernel``, and takes its plain version
+:func:`ragged_score_torch` (the gather form of the reference's
+``ragged_score_jnp``) only for tensors on the CPU.  The reference's pow2
+padding of M and Q bounded TPU compiles and is dropped.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from lakesoul_tpu_torch import _build
+
+TILE = 128  # rows per work item
+# pad rows carry this additive constant: estimated distances become
+# huge-but-finite (inf would poison a*g arithmetic), and the top-k treats
+# anything at or above PAD_EST_VALID as a hole
+PAD_B = np.float32(1e30)
+PAD_EST_VALID = np.float32(1e29)
+
+
+def ragged_arange(starts, counts) -> np.ndarray:
+    """Concatenate ``arange(s, s + c)`` for each (s, c) pair, vectorized."""
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    base = np.repeat(np.asarray(starts, np.int64), counts)
+    resets = np.repeat(np.cumsum(counts) - counts, counts)
+    return base + (np.arange(total, dtype=np.int64) - resets)
+
+
+def fold_cluster(norms: torch.Tensor, factors: torch.Tensor, code_dot_c: torch.Tensor,
+                 *, d: int):
+    """Fold per-row 1-bit RaBitQ constants into the (a, b, h) form of the
+    ragged estimator, on the tensors' device, with the 1/sqrt(D) bit-plane
+    normalization folded in.  (The reference's ex-code form, ``ex=True``,
+    comes with the ex-code path.)"""
+    root_d = float(np.float32(np.sqrt(d)))
+    hh = 2.0 * norms / (factors * root_d)
+    a = 2.0 * hh
+    return a, norms * norms + a * code_dot_c, hh
+
+
+def plan_items(pairs_q, pairs_c, csq, csum, tile_start, tile_count):
+    """Flatten (query, cluster) probe pairs into per-tile work items, on the
+    host.  Pairs must arrive query-major (sorted by query) so item rows stay
+    query-contiguous for :func:`items_topk`.  Returns (item_q, item_tile)
+    int32 and (csq, csum) f32 numpy arrays, one entry per item."""
+    pairs_c = np.asarray(pairs_c, np.int64)
+    reps = np.asarray(tile_count, np.int64)[pairs_c]
+    item_q = np.repeat(np.asarray(pairs_q, np.int64), reps).astype(np.int32)
+    item_tile = ragged_arange(np.asarray(tile_start, np.int64)[pairs_c], reps).astype(np.int32)
+    item_csq = np.repeat(np.asarray(csq, np.float32), reps)
+    item_csum = np.repeat(np.asarray(csum, np.float32), reps)
+    return item_q, item_tile, item_csq, item_csum
+
+
+# --------------------------------------------------------------------------
+# the kernel: CUDA wrapper + plain version
+# --------------------------------------------------------------------------
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ragged_score")
+    ptr = ctypes.c_void_p
+    lib.ls_ragged_score.argtypes = [ptr] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ptr]
+    lib.ls_ragged_score.restype = ctypes.c_int  # a cudaError_t
+    return lib
+
+
+def ragged_score_torch(item_q: torch.Tensor, item_tile: torch.Tensor, csq: torch.Tensor,
+                       csum: torch.Tensor, q_glob, codes, a, b, h, *, tile: int = TILE):
+    """Plain version of :func:`ragged_score`: gather each item's tile and
+    query row, then one batched product (materializes [M, tile, d])."""
+    rows = item_tile.long()[:, None] * tile + torch.arange(tile, device=codes.device)[None, :]
+    g = torch.bmm(codes[rows], q_glob[item_q.long()][:, :, None])[..., 0]
+    return b[rows] + csq[:, None] - h[rows] * csum[:, None] - a[rows] * g
+
+
+def _check_score_inputs(item_q, item_tile, csq, csum, q_glob, codes, a, b, h, tile):
+    m = len(item_q)
+    if not (len(item_tile) == len(csq) == len(csum) == m):
+        raise ValueError("item_q, item_tile, csq and csum must have one entry per item")
+    if codes.dtype != torch.float32 or codes.ndim != 2 or q_glob.dtype != torch.float32 \
+            or q_glob.ndim != 2 or q_glob.shape[1] != codes.shape[1]:
+        raise ValueError(f"need codes [R, d] and q_glob [Q, d] float32, got"
+                         f" {tuple(codes.shape)} {codes.dtype}, {tuple(q_glob.shape)} {q_glob.dtype}")
+    r = codes.shape[0]
+    if tile < 1 or r % tile:
+        raise ValueError(f"codes rows {r} are not a multiple of the tile {tile}")
+    dev = codes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"codes on {dev}: need a cpu or cuda device")
+    for name, t in (("a", a), ("b", b), ("h", h)):
+        if t.dtype != torch.float32 or t.shape != (r,):
+            raise ValueError(f"{name} must be [{r}] float32, got {t.dtype} {tuple(t.shape)}")
+    for t in (q_glob, codes, a, b, h):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"q_glob, codes, a, b, h must be contiguous on {dev}")
+    if m and not (0 <= item_tile.min() and item_tile.max() < r // tile):
+        raise ValueError(f"item_tile out of range [0, {r // tile})")
+    if m and not (0 <= item_q.min() and item_q.max() < q_glob.shape[0]):
+        raise ValueError(f"item_q out of range [0, {q_glob.shape[0]})")
+
+
+def ragged_score(item_q, item_tile, csq, csum, q_glob: torch.Tensor, codes: torch.Tensor,
+                 a: torch.Tensor, b: torch.Tensor, h: torch.Tensor, *,
+                 tile: int = TILE) -> torch.Tensor:
+    """Item scores [M, tile] f32 on ``codes``' device.
+
+    ``item_q``/``item_tile`` (int) and ``csq``/``csum`` (f32) are the host
+    item tables of :func:`plan_items`, [M] each; they are checked against
+    ``q_glob`` [Q, d] and ``codes`` [R, d] before they are copied to the
+    device.  ``a``/``b``/``h`` are [R] f32."""
+    item_q = np.asarray(item_q, np.int32)
+    item_tile = np.asarray(item_tile, np.int32)
+    csq = np.asarray(csq, np.float32)
+    csum = np.asarray(csum, np.float32)
+    _check_score_inputs(item_q, item_tile, csq, csum, q_glob, codes, a, b, h, tile)
+    dev = codes.device
+    ints = torch.from_numpy(np.stack([item_q, item_tile])).to(dev)
+    floats = torch.from_numpy(np.stack([csq, csum])).to(dev)
+    if dev.type == "cpu":
+        return ragged_score_torch(ints[0], ints[1], floats[0], floats[1], q_glob, codes, a, b, h,
+                                  tile=tile)
+    m = len(item_q)
+    out = torch.empty((m, tile), dtype=torch.float32, device=dev)
+    if m:
+        _build.launch(_lib(), "ls_ragged_score", dev, ints[0].data_ptr(), ints[1].data_ptr(),
+                      floats[0].data_ptr(), floats[1].data_ptr(), q_glob.data_ptr(),
+                      codes.data_ptr(), a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                      out.data_ptr(), m, codes.shape[1], tile)
+        ragged_score.launches += 1
+    return out
+
+
+ragged_score.launches = 0
+
+
+def items_topk(est: torch.Tensor, item_q, item_tile, nq: int, s: int, *, tile: int = TILE):
+    """Per-query top-``s`` over item scores, on ``est``'s device with no
+    per-query loop.  Items are query-contiguous: each query's item rows are
+    scattered into one row of a [nq, max_items·tile] buffer of +inf, then
+    one ``torch.topk``.  Returns (rows [nq, s] int64 with -1 holes,
+    est [nq, s] f32 with +inf holes); scores >= PAD_EST_VALID are holes."""
+    dev = est.device
+    out_rows = torch.full((nq, s), -1, dtype=torch.int64, device=dev)
+    out_est = torch.full((nq, s), float("inf"), dtype=torch.float32, device=dev)
+    item_q = np.asarray(item_q, np.int64)
+    m = len(item_q)
+    if m == 0 or s == 0:
+        return out_rows, out_est
+    counts = np.bincount(item_q, minlength=nq)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(m, dtype=np.int64) - offsets[item_q]  # item's place in its query
+    width = int(counts.max()) * tile
+    buf = torch.full((nq, width), float("inf"), dtype=torch.float32, device=dev)
+    cols = torch.from_numpy(slot).to(dev)[:, None] * tile + torch.arange(tile, device=dev)
+    buf[torch.from_numpy(item_q).to(dev)[:, None], cols] = est
+    k = min(s, width)
+    vals, pos = torch.topk(buf, k, dim=1, largest=False, sorted=True)
+    # pos → item (via the query's first item) → shard row
+    tiles = torch.from_numpy(np.asarray(item_tile, np.int64)).to(dev)
+    first = torch.from_numpy(offsets).to(dev)[:, None]
+    item = (first + pos // tile).clamp_max(m - 1)
+    rows = tiles[item] * tile + pos % tile
+    valid = vals < float(PAD_EST_VALID)
+    out_est[:, :k] = torch.where(valid, vals, float("inf"))
+    out_rows[:, :k] = torch.where(valid, rows, -1)
+    return out_rows, out_est

@@ -30,9 +30,18 @@
 //   query sits in shared memory (2 KB at d = 512, dynamic size), one thread
 //   computes one row, reading its bytes 16 or 4 at a time where the row
 //   stride and base allow it.
+//
+// ls_packed_scan replaces lakesoul_tpu/vector/kernels.py
+//   packed_scan_pallas -> _packed_scan_kernel.
+//   One cluster's RaBitQ estimate: bq = bits . q as in ls_packed_dot, then
+//   norm^2 + |q|^2 - 2 * norm * ((2 * bq - sum(q)) / sqrt(d)) / factor -> [N]
+//   f32, fused.  sum(q) and |q|^2 are reduced in every block over the
+//   zero-padded query in shared memory, as the TPU body reduces its padded
+//   query; d is the caller's argument, not the query's length.  At
+//   N = 1,048,576, d = 512 it moves 75.5 MB (~23 us at 3.35 TB/s) for
+//   ~1.1e9 FLOP: bound by bytes, like ls_packed_dot, whose row loop it shares.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ls_common.cuh"
 
 namespace {
 
@@ -137,17 +146,11 @@ cudaError_t launch_batch(const uint8_t* codes, const float* q, float* out, int64
   return cudaGetLastError();
 }
 
-// W = code bytes per load (1, 4 or 16)
+// bits . q_sm over one row of d8 code bytes, q_sm zero past d; W = code
+// bytes per load (1, 4 or 16).
 template <int W>
-__global__ void __launch_bounds__(256)
-packed_dot_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q,
-                  float* __restrict__ out, int64_t n, int d8, int d) {
-  extern __shared__ float q_sm[];  // 8 * d8 floats, zero past d
-  for (int k = threadIdx.x; k < 8 * d8; k += blockDim.x) q_sm[k] = k < d ? q[k] : 0.f;
-  __syncthreads();
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const uint8_t* c = codes + row * d8;
+__device__ __forceinline__ float row_dot(const uint8_t* __restrict__ c, const float* q_sm,
+                                         int d8) {
   float acc = 0.f;
   for (int p = 0; p < d8; p += W) {
     uint32_t words[(W + 3) / 4];
@@ -168,21 +171,81 @@ packed_dot_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q
       for (int j = 0; j < 8; ++j) acc = fmaf(bit_as_float(byte, j), qk[j], acc);
     }
   }
-  out[row] = acc;
+  return acc;
+}
+
+// packed_dot: one thread per row; W = code bytes per load (1, 4 or 16)
+template <int W>
+__global__ void __launch_bounds__(256)
+packed_dot_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q,
+                  float* __restrict__ out, int64_t n, int d8, int d) {
+  extern __shared__ float q_sm[];  // 8 * d8 floats, zero past d
+  for (int k = threadIdx.x; k < 8 * d8; k += blockDim.x) q_sm[k] = k < d ? q[k] : 0.f;
+  __syncthreads();
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  out[row] = row_dot<W>(codes + row * d8, q_sm, d8);
+}
+
+// packed_scan: one thread per row, as packed_dot, with the estimator fused.
+template <int W>
+__global__ void __launch_bounds__(256)
+packed_scan_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q,
+                   const float* __restrict__ norms, const float* __restrict__ factors,
+                   float* __restrict__ out, int64_t n, int d8, int qlen, float sqrt_d) {
+  extern __shared__ float q_sm[];  // 8 * d8 floats, zero past qlen
+  __shared__ float red[2][8];      // per-warp partial sum(q), |q|^2
+  float s = 0.f, sq = 0.f;
+  for (int k = threadIdx.x; k < 8 * d8; k += blockDim.x) {
+    const float v = k < qlen ? q[k] : 0.f;
+    q_sm[k] = v;
+    s += v;
+    sq = fmaf(v, v, sq);
+  }
+  s = warp_sum(s);
+  sq = warp_sum(sq);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = sq;
+  }
+  __syncthreads();
+  float qsum = 0.f, qsq = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    qsum += red[0][w];
+    qsq += red[1][w];
+  }
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const float bq = row_dot<W>(codes + row * d8, q_sm, d8);
+  const float nrm = norms[row];
+  const float est_rq = nrm * ((2.f * bq - qsum) / sqrt_d) / factors[row];
+  out[row] = nrm * nrm + qsq - 2.f * est_rq;
 }
 
 template <int W>
 cudaError_t launch_single(const uint8_t* codes, const float* q, float* out, int64_t n, int d8,
                           int d, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(d8) * 8 * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        packed_dot_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(packed_dot_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   packed_dot_kernel<W><<<blocks, threads, smem, stream>>>(codes, q, out, n, d8, d);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_scan(const uint8_t* codes, const float* q, const float* norms,
+                        const float* factors, float* out, int64_t n, int d8, int qlen,
+                        float sqrt_d, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(d8) * 8 * sizeof(float);
+  const cudaError_t err = allow_smem(packed_scan_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  packed_scan_kernel<W><<<blocks, threads, smem, stream>>>(codes, q, norms, factors, out, n, d8,
+                                                           qlen, sqrt_d);
   return cudaGetLastError();
 }
 
@@ -226,8 +289,22 @@ int ls_packed_dot_batch(const void* codes, const void* q, void* out, int64_t n, 
   }
 }
 
-const char* ls_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+// codes [n, d8] uint8, q [qlen] f32 (qlen <= 8 * d8), norms and factors [n]
+// f32, out [n] f32, all contiguous on the current device.  sqrt_d is sqrt(d)
+// rounded to f32.  Returns a cudaError_t (0 = launched).
+int ls_packed_scan(const void* codes, const void* q, const void* norms, const void* factors,
+                   void* out, int64_t n, int d8, int qlen, float sqrt_d, void* stream) {
+  if (n <= 0) return 0;
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* nm = static_cast<const float*>(norms);
+  const auto* fc = static_cast<const float*>(factors);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto addr = reinterpret_cast<uintptr_t>(codes);
+  if (d8 % 16 == 0 && addr % 16 == 0) return launch_scan<16>(c, qf, nm, fc, o, n, d8, qlen, sqrt_d, s);
+  if (d8 % 4 == 0 && addr % 4 == 0) return launch_scan<4>(c, qf, nm, fc, o, n, d8, qlen, sqrt_d, s);
+  return launch_scan<1>(c, qf, nm, fc, o, n, d8, qlen, sqrt_d, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Process-wide metrics registry: counters, gauges, histograms.
 
 The port's own copy of the part of ``lakesoul_tpu/obs/metrics.py`` that the
-ANN endpoint records into.  Naming scheme as there: ``lakesoul_<layer>_<name>``
-with ``_total`` for counters and ``_seconds`` for duration histograms.
+ANN endpoint and the ANN plane record into.  Naming scheme as there:
+``lakesoul_<layer>_<name>`` with ``_total`` for counters and ``_seconds``
+for duration histograms.
 All metric types are thread-safe; getters are memoized per (name, labels).
 """
 
@@ -49,7 +50,7 @@ class Counter:
 
 
 class Gauge:
-    """Inc/dec point-in-time value."""
+    """Set/inc/dec point-in-time value."""
 
     kind = "gauge"
     __slots__ = ("name", "labels", "_value", "_lock")
@@ -67,6 +68,10 @@ class Gauge:
     def dec(self, n=1) -> None:
         with self._lock:
             self._value -= n
+
+    def set(self, v) -> None:
+        with self._lock:
+            self._value = v
 
     @property
     def value(self):

@@ -228,11 +228,12 @@ class IvfRabitqIndex:
             + (c**2).sum(1)[None, :]
         )
         self._invalidate_device_cache()
-        assign = torch.argmin(d2, dim=1).cpu().numpy()
-        for cl in np.unique(assign):
-            m = assign == cl
-            rows = torch.from_numpy(np.flatnonzero(m)).to(self.device)
-            self.deltas[cl].append(self._make_cluster(vectors[rows], ids[m], c[cl]))
+        # one quantize call for the whole batch, cut per cluster: rows keep
+        # their input order within a cluster, as the reference's masks do
+        assign = torch.argmin(d2, dim=1)
+        for cl, seg in enumerate(self._split_clusters(vectors, ids, assign, len(c))):
+            if len(seg.ids):
+                self.deltas[cl].append(seg)
 
     def merge_deltas(self) -> None:
         """Fold delta segments into base clusters (compaction of the index)."""

@@ -1,8 +1,8 @@
 """ANN search kernels and the search bodies around them (the port of
 ``lakesoul_tpu/vector/kernels.py``'s single-index search path).
 
-Two kernels, each a packed 1-bit code × query product written in CUDA C++
-for Hopper (``lakesoul_tpu_torch/csrc/packed_dot.cu``):
+Four kernels written in CUDA C++ for Hopper.  Three are packed 1-bit
+code × query products (``lakesoul_tpu_torch/csrc/packed_dot.cu``):
 
 - :func:`packed_dot` — bits [N, 8·d8] · q [d] → [N].  Replaces
   ``packed_dot_pallas`` → ``_packed_dot_kernel``.  Bound by bytes: 71 MB at
@@ -11,12 +11,24 @@ for Hopper (``lakesoul_tpu_torch/csrc/packed_dot.cu``):
   ``packed_dot_batch_pallas`` → ``_packed_dot_batch_kernel``.  Bound by
   operations: 2.75e11 f32 FLOP at N = 1,048,576, d = 512, nq = 256, ~4.1 ms at
   the 67 TFLOP/s f32 peak (its 1.14 GB of traffic take ~0.34 ms).
+- :func:`packed_scan` — one cluster's RaBitQ estimate, bits·q with the
+  estimator fused → [N].  Replaces ``packed_scan_pallas`` →
+  ``_packed_scan_kernel``.  Bound by bytes, like ``packed_dot``.
+
+and one is the exact scan of the brute-force oracle
+(``lakesoul_tpu_torch/csrc/bruteforce.cu``):
+
+- :func:`bruteforce_distances` — ‖x‖² − 2x·q + ‖q‖² over [N, D] f32 → [N].
+  Replaces ``bruteforce_distances_pallas`` → ``_bruteforce_kernel``.  Bound
+  by bytes: N·D·4 (5.1 GB, ~1.5 ms at 3.35 TB/s, at 10M × 128).
+  :func:`bruteforce_topk` adds a torch top-k.
 
 Each wrapper checks its inputs and raises on anything else; for a CUDA
 tensor it launches its kernel or raises, and only a tensor on the CPU takes
-the plain PyTorch version beside it (``packed_dot_torch`` /
-``packed_dot_batch_torch``: unpack, then matmul).  Each wrapper counts its
-launches in a plain integer attribute, ``launches``.
+the plain PyTorch version beside it (``*_torch``).  Each wrapper counts its
+launches in a plain integer attribute, ``launches``.  The TPU wrappers'
+pow2 row buckets only bounded compiles there; results for the real rows
+are the same without them, so they are dropped.
 
 The query is taken in natural order: the plane-concat layout of the TPU
 kernels only avoided 3-D reshapes in Mosaic.  Top-k, gather and exact
@@ -33,7 +45,7 @@ import numpy as np
 import torch
 
 from lakesoul_tpu_torch import _build
-from lakesoul_tpu_torch.vector.rabitq import unpack_bits
+from lakesoul_tpu_torch.vector.rabitq import estimate_distances, unpack_bits
 
 # pad sentinels shared by every padded-candidate path (fused_search host
 # wrapper and the device-resident bundle): pad rows must sort last and divide
@@ -68,11 +80,21 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("packed_dot")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.ls_packed_dot.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-    lib.ls_packed_dot.restype = i32
     lib.ls_packed_dot_batch.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
-    lib.ls_packed_dot_batch.restype = i32
-    lib.ls_cuda_error_string.argtypes = [i32]
-    lib.ls_cuda_error_string.restype = ctypes.c_char_p
+    lib.ls_packed_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
+    for fn in (lib.ls_packed_dot, lib.ls_packed_dot_batch, lib.ls_packed_scan):
+        fn.restype = i32  # a cudaError_t
+    return lib
+
+
+@functools.cache
+def _bruteforce_lib() -> ctypes.CDLL:
+    lib = _build.load("bruteforce")
+    lib.ls_bruteforce_distances.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.ls_bruteforce_distances.restype = ctypes.c_int  # a cudaError_t
     return lib
 
 
@@ -89,13 +111,17 @@ def _check(codes: torch.Tensor, q: torch.Tensor, q_ndim: int) -> None:
         raise ValueError("codes and query must be contiguous")
 
 
+def _check_rows(n: int, device: torch.device, **vecs: torch.Tensor) -> None:
+    """Per-row f32 vectors of a kernel: [n], contiguous, on ``device``."""
+    for name, t in vecs.items():
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"{name} must be [{n}] float32, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+
+
 def _launch(fn: str, device: torch.device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err:
-        raise RuntimeError(f"{fn} launch failed: {lib.ls_cuda_error_string(err).decode()}")
+    _build.launch(_lib(), fn, device, *args)
 
 
 def packed_dot_torch(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -159,6 +185,73 @@ def packed_dot_batch(codes: torch.Tensor, q: torch.Tensor, *,
 packed_dot_batch.launches = 0
 
 
+def packed_scan_torch(codes, norms, factors, q_rot, *, d: int) -> torch.Tensor:
+    """Plain version of :func:`packed_scan`: the estimator of
+    ``rabitq.estimate_distances``, the reference's own twin."""
+    return estimate_distances(codes, norms, factors, q_rot, d=d)
+
+
+def packed_scan(codes: torch.Tensor, norms: torch.Tensor, factors: torch.Tensor,
+                q_rot: torch.Tensor, *, d: int) -> torch.Tensor:
+    """Estimated squared distances of one cluster's packed codes [N, d8] to
+    the rotated query residual ``q_rot`` [≤ 8·d8] → [N] f32.  Bits past
+    ``len(q_rot)`` get zero weight; ``d`` scales the estimate (√d)."""
+    _check(codes, q_rot, 1)
+    n, d8 = codes.shape
+    _check_rows(n, codes.device, norms=norms, factors=factors)
+    if codes.device.type == "cpu":
+        return packed_scan_torch(codes, norms, factors, q_rot, d=d)
+    out = torch.empty(n, dtype=torch.float32, device=codes.device)
+    if n:
+        _launch("ls_packed_scan", codes.device, codes.data_ptr(), q_rot.data_ptr(),
+                norms.data_ptr(), factors.data_ptr(), out.data_ptr(), n, d8, q_rot.shape[0],
+                math.sqrt(d))
+        packed_scan.launches += 1
+    return out
+
+
+packed_scan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# exact brute-force scan: CUDA kernel + plain version, then torch top-k
+# --------------------------------------------------------------------------
+
+
+def bruteforce_distances_torch(vectors: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bruteforce_distances` (``_bruteforce_jnp``)."""
+    return (vectors * vectors).sum(1) - 2.0 * (vectors @ query) + (query * query).sum()
+
+
+def bruteforce_distances(vectors: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Exact ‖x‖² − 2x·q + ‖q‖² of every row of ``vectors`` [N, D] to
+    ``query`` [D] → [N] f32."""
+    if vectors.dtype != torch.float32 or vectors.ndim != 2:
+        raise ValueError(f"vectors must be [N, D] float32, got {vectors.dtype} {tuple(vectors.shape)}")
+    n, dd = vectors.shape
+    if vectors.device.type not in ("cpu", "cuda") or not vectors.is_contiguous():
+        raise ValueError(f"vectors must be contiguous on a cpu or cuda device, not {vectors.device}")
+    _check_rows(dd, vectors.device, query=query)
+    if vectors.device.type == "cpu":
+        return bruteforce_distances_torch(vectors, query)
+    out = torch.empty(n, dtype=torch.float32, device=vectors.device)
+    if n:
+        _build.launch(_bruteforce_lib(), "ls_bruteforce_distances", vectors.device,
+                      vectors.data_ptr(), query.data_ptr(), out.data_ptr(), n, dd)
+        bruteforce_distances.launches += 1
+    return out
+
+
+bruteforce_distances.launches = 0
+
+
+def bruteforce_topk(vectors: torch.Tensor, query: torch.Tensor, k: int):
+    """Exact L2 top-k over [N, D] vectors: (dists [k], indices [k]) on the
+    vectors' device, nearest first, ``k`` clamped to N."""
+    dists = bruteforce_distances(vectors, query)
+    return torch.topk(dists, min(k, len(dists)), largest=False, sorted=True)
+
+
 # --------------------------------------------------------------------------
 # search bodies
 # --------------------------------------------------------------------------
@@ -215,6 +308,16 @@ def _fused_search_resident(codes, norms, factors, code_dot_c, cluster_id, probe_
     return dists, idx_s[order]
 
 
+def exact_distances(sub: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Exact squared distances of gathered rows ``sub`` [Q, s, d] to their
+    queries [Q, d] → [Q, s]: one batched product."""
+    return (
+        (sub * sub).sum(-1)
+        - 2.0 * torch.bmm(sub, queries[:, :, None])[..., 0]
+        + (queries * queries).sum(-1)[:, None]
+    )
+
+
 def _batched_rerank_topk(est, raw, queries, *, s: int, k: int, do_rerank: bool):
     """Shared tail of the batched resident search: [N, Q] estimates →
     (dists [Q, k], indices [Q, k]), with optional exact re-rank."""
@@ -225,12 +328,7 @@ def _batched_rerank_topk(est, raw, queries, *, s: int, k: int, do_rerank: bool):
     if not do_rerank:
         return _smallest(est_t, k)
     est_s, idx_s = _smallest(est_t, s)  # [Q, s]
-    sub = raw[idx_s]  # [Q, s, d]
-    exact = (
-        (sub * sub).sum(-1)
-        - 2.0 * torch.bmm(sub, queries[:, :, None])[..., 0]
-        + (queries * queries).sum(-1)[:, None]
-    )
+    exact = exact_distances(raw[idx_s], queries)  # gathers [Q, s, d]
     exact = exact.masked_fill(~torch.isfinite(est_s), math.inf)
     dists, order = _smallest(exact, k)
     return dists, torch.gather(idx_s, 1, order)

@@ -1,11 +1,13 @@
-"""Read side of the versioned vector-index store (the port of
-``lakesoul_tpu/vector/manifest.py``'s ``ManifestStore`` read path).
+"""Versioned vector-index store on a local filesystem (the port of
+``lakesoul_tpu/vector/manifest.py``'s ``ManifestStore``).
 
-Reads a local index directory written by the JAX package's
-``ManifestStore.write_index``: a ``LATEST`` pointer →
-``manifests/manifest-<gen>.json`` → npz segment files, every blob
-CRC32-checked.  It is the on-disk form of :meth:`IvfRabitqIndex.state`.
-Object-store URIs are not read yet."""
+Layout as the JAX package's: a ``LATEST`` pointer →
+``manifests/manifest-<gen>.json`` → npz segment files
+(``segments/cluster_<c>.gen<gen>[.delta_<i>].seg``, fields codes / norms /
+factors / ids / code_dot_c / raw), every blob CRC32-wrapped, so either
+package reads what the other writes.  It is the on-disk form of
+:meth:`IvfRabitqIndex.state`.  Every blob is published atomically
+(``runtime/atomicio.py``).  Object-store URIs are not supported yet."""
 
 from __future__ import annotations
 
@@ -18,10 +20,16 @@ from pathlib import Path
 import numpy as np
 
 from lakesoul_tpu_torch.errors import VectorIndexError
+from lakesoul_tpu_torch.runtime.atomicio import publish_bytes
 from lakesoul_tpu_torch.vector.config import VectorIndexConfig
 from lakesoul_tpu_torch.vector.index import IvfRabitqIndex
 
 LATEST = "LATEST"
+SEGMENT_FIELDS = ("codes", "norms", "factors", "ids", "code_dot_c", "raw")
+
+
+def _crc_wrap(payload: bytes) -> bytes:
+    return zlib.crc32(payload).to_bytes(4, "big") + payload
 
 
 def _crc_unwrap(blob: bytes, what: str) -> bytes:
@@ -34,14 +42,59 @@ def _crc_unwrap(blob: bytes, what: str) -> bytes:
 
 
 class ManifestStore:
-    """Read-only view of an index directory on the local filesystem."""
+    """An index directory on the local filesystem."""
 
     def __init__(self, root: str | Path):
         root = str(root)
         if "://" in root and not root.startswith("file://"):
-            raise VectorIndexError(f"only local index directories are read yet, not {root!r}")
+            raise VectorIndexError(f"only local index directories are supported yet, not {root!r}")
         self.root = Path(root.removeprefix("file://"))
 
+    # ------------------------------------------------------------------ write
+    def write_index(self, index: IvfRabitqIndex) -> int:
+        """Persist ``index`` as the next generation and swap ``LATEST`` to
+        it; returns the generation."""
+        (self.root / "manifests").mkdir(parents=True, exist_ok=True)
+        (self.root / "segments").mkdir(parents=True, exist_ok=True)
+        generation = self.latest_generation() + 1
+        state = index.state()
+        base = []
+        for c, seg in enumerate(state["clusters"]):
+            name = f"segments/cluster_{c}.gen{generation}.seg"
+            self._write_segment(name, seg)
+            base.append(name)
+        delta = []
+        for c, segs in enumerate(state["deltas"]):
+            for i, seg in enumerate(segs):
+                name = f"segments/cluster_{c}.gen{generation}.delta_{i}.seg"
+                self._write_segment(name, seg)
+                delta.append({"cluster": c, "path": name})
+        manifest = {
+            "generation": generation,
+            "config": state["config"],
+            "keep_raw": state["keep_raw"],
+            "num_vectors": index.num_vectors,
+            "centroids": None if state["centroids"] is None else state["centroids"].tolist(),
+            "base_segments": base,
+            "delta_segments": delta,
+            "indexed_files": [],  # the table feed that fills it is not ported
+        }
+        mpath = f"manifests/manifest-{generation}.json"
+        self._write_blob(mpath, _crc_wrap(json.dumps(manifest).encode()))
+        self._write_blob(LATEST, _crc_wrap(mpath.encode()))
+        return generation
+
+    def _write_segment(self, name: str, seg: dict) -> None:
+        buf = io.BytesIO()
+        np.savez(buf, **{f: seg[f] for f in SEGMENT_FIELDS if seg.get(f) is not None})
+        self._write_blob(name, _crc_wrap(buf.getvalue()))
+
+    def _write_blob(self, rel: str, data: bytes) -> None:
+        # LATEST is overwritten by every write_index: a torn overwrite would
+        # make the whole store unreadable, so every blob is published whole
+        publish_bytes(self.root / rel, data)
+
+    # ------------------------------------------------------------------- read
     def _read_blob(self, rel: str) -> bytes:
         return (self.root / rel).read_bytes()
 
@@ -58,6 +111,18 @@ class ManifestStore:
     def read_manifest(self) -> dict:
         mpath = _crc_unwrap(self._read_blob(LATEST), LATEST).decode()
         return json.loads(_crc_unwrap(self._read_blob(mpath), mpath))
+
+    def read_manifest_at(self, generation: int) -> dict:
+        """A PINNED generation's manifest, bypassing ``LATEST``: manifests
+        are immutable once written, so a reader holding a generation number
+        (the ANN plane's per-shard records) is immune to a concurrent
+        rebuild swapping ``LATEST`` underneath it."""
+        mpath = f"manifests/manifest-{generation}.json"
+        return json.loads(_crc_unwrap(self._read_blob(mpath), mpath))
+
+    def read_at(self, generation: int, *, device=None) -> IvfRabitqIndex:
+        return IvfRabitqIndex.from_state(self.state(self.read_manifest_at(generation)),
+                                         device=device)
 
     def read_latest(self, *, device=None) -> IvfRabitqIndex:
         return IvfRabitqIndex.from_state(self.state(self.read_manifest()), device=device)

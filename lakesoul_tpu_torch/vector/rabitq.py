@@ -154,8 +154,10 @@ class RabitqQuantizer:
 def estimate_distances(packed_codes: torch.Tensor, norms: torch.Tensor,
                        factors: torch.Tensor, q_rot: torch.Tensor, *, d: int) -> torch.Tensor:
     """Estimated squared L2 distances of one cluster's codes to the rotated
-    query residual ``q_rot`` [d]: one bits·q product after unpacking."""
-    bq = unpack_bits(packed_codes, d) @ q_rot
+    query residual ``q_rot`` [d]: one bits·q product after unpacking.  A
+    shorter ``q_rot`` reads as zero-padded to d, as the reference's packed
+    scan pads it."""
+    bq = unpack_bits(packed_codes, q_rot.shape[0]) @ q_rot
     dot_obar_q = (2.0 * bq - q_rot.sum()) / math.sqrt(d)
     est_rq = norms * dot_obar_q / factors
     return norms * norms + (q_rot * q_rot).sum() - 2.0 * est_rq

@@ -64,8 +64,10 @@ class AnnEndpoint:
         )
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
-        # (query, future, submit time)
-        self._pending: list[tuple[np.ndarray, Future, float]] = []
+        # (query, extra, future, submit time): ``extra`` carries per-request
+        # parameters a subclass threads through to its batch (the sharded
+        # endpoint's per-query nprobe); this endpoint passes None
+        self._pending: list[tuple[np.ndarray, object, Future, float]] = []
         self._closed = False
         self._n_requests = 0
         self._n_rejected = 0
@@ -89,6 +91,9 @@ class AnnEndpoint:
     def submit(self, query: np.ndarray) -> Future:
         """Enqueue one query; the Future resolves to (ids, dists).  Raises
         :class:`OverloadedError` when the bounded pending queue is full."""
+        return self._submit(query, None)
+
+    def _submit(self, query: np.ndarray, extra) -> Future:
         q = np.asarray(query, dtype=np.float32)
         if q.ndim != 1:
             raise ValueError("submit() takes a single [d] query")
@@ -108,7 +113,7 @@ class AnnEndpoint:
                     f"ann endpoint overloaded ({len(self._pending)} queued,"
                     f" bound {self.max_pending}); retry later"
                 )
-            self._pending.append((q, fut, time.monotonic()))
+            self._pending.append((q, extra, fut, time.monotonic()))
             self._n_requests += 1
             self._c_requests.inc()
             self._g_pending.inc()
@@ -153,12 +158,13 @@ class AnnEndpoint:
         self.close()
 
     # --------------------------------------------------------------- worker
-    def _execute(self, queries: list[np.ndarray]):
+    def _execute(self, queries: list[np.ndarray], extras: list):
         """Run ONE fused batch; returns (ids_list, dists_list) aligned with
-        the inputs."""
+        the inputs.  Subclasses override it to route the batch elsewhere (the
+        sharded endpoint turns ``extras`` into per-query nprobe)."""
         return self.index.batch_search(np.stack(queries), self.params)
 
-    def _take_batch(self) -> list[tuple[np.ndarray, Future, float]]:
+    def _take_batch(self) -> list[tuple[np.ndarray, object, Future, float]]:
         """Block until work exists, then hold the window open for stragglers
         up to max_wait_s (or until max_batch queue up)."""
         with self._wake:
@@ -185,9 +191,11 @@ class AnnEndpoint:
             # everything below is fenced: the worker must survive ANY per-
             # batch failure (a dead worker would hang every future request)
             try:
-                ids, dists = self._execute([q for q, _, _ in batch])
+                ids, dists = self._execute(
+                    [q for q, _, _, _ in batch], [e for _, e, _, _ in batch]
+                )
             except Exception as e:  # fan the failure out to every waiter
-                for _, fut, _ in batch:
+                for _, _, fut, _ in batch:
                     try:
                         fut.set_exception(e)
                     except Exception:  # cancelled/raced: nobody is waiting
@@ -197,7 +205,7 @@ class AnnEndpoint:
                 self._n_batches += 1
                 self._n_batched_requests += len(batch)
             done = time.monotonic()
-            for i, (_, fut, submitted) in enumerate(batch):
+            for i, (_, _, fut, submitted) in enumerate(batch):
                 self._h_latency.observe(done - submitted)
                 try:
                     fut.set_result((ids[i], dists[i]))

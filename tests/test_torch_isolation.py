@@ -3,8 +3,8 @@
 
 Two checks: a static scan of every import statement, and a subprocess in
 which a meta-path finder makes ``jax``, ``jaxlib`` and ``lakesoul_tpu``
-unimportable while every port module is imported and a tiny index is built
-and searched on the CPU.  It has to be a subprocess: ``tests/conftest.py``
+unimportable while every port module is imported, a tiny index is built
+and searched on the CPU, and so is a tiny two-shard ANN plane.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -82,13 +82,26 @@ _CHILD = textwrap.dedent(
     idx.enable_device_cache()
     ids_b, _ = idx.batch_search(x[:5], SearchParams(top_k=3, nprobe=4, rerank_depth=400))
     assert [int(i[0]) for i in ids_b] == [0, 1, 2, 3, 4], ids_b
+    import tempfile
+    from lakesoul_tpu_torch.annplane import AnnPlane, AnnPlaneConfig, ShardedAnnBuilder
+    root = tempfile.mkdtemp() + "/plane"
+    pcfg = AnnPlaneConfig(index=cfg, shard_budget_bytes=200 * AnnPlaneConfig(
+        index=cfg, shard_budget_bytes=1 << 20).bytes_per_vector())
+    m = ShardedAnnBuilder(root, pcfg, device="cpu").build([(x[:300], np.arange(300)),
+                                                          (x[300:], np.arange(300, 400))])
+    assert len(m["shards"]) == 2, m
+    plane = AnnPlane.open(root, device="cpu")
+    ids_p, _ = plane.batch_search(x[[7, 250, 399]], SearchParams(top_k=1, nprobe=8,
+                                                                 rerank_depth=200))
+    assert [int(i[0]) for i in ids_p] == [7, 250, 399], ids_p
     if not torch.cuda.is_available():
-        try:
-            IvfRabitqIndex(cfg)
-        except ConfigError:
-            pass
-        else:
-            raise AssertionError("device=None without CUDA must raise")
+        for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root)):
+            try:
+                make()
+            except ConfigError:
+                pass
+            else:
+                raise AssertionError("device=None without CUDA must raise")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(mods))
