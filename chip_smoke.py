@@ -11,20 +11,27 @@ Each phase prints one JSON line with its own timing:
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
              nvcc per source, all started together.
 3. kernels — holds each of the five kernels against its plain PyTorch
-             version at the serving shapes and at ragged edges, every query
-             tile of the batch kernel included (rtol 1e-5, atol 1e-4:
-             float32 sums taken in another order; for ``ragged_score`` the
-             rtol is of the magnitude of the terms an estimate sums, see
-             ``ragged_check``), and times kernel, plain
+             version at the serving shapes and at ragged edges, both modes
+             and every query tile of the batch kernel included (rtol 1e-5,
+             atol 1e-4: float32 sums taken in another order; for the
+             estimates of ``packed_estimate_batch`` and ``ragged_score``
+             the rtol is of the magnitude of the terms an estimate sums,
+             see ``estimate_check`` and ``ragged_check``); requires a
+             query's values from the batch kernel to be bitwise the same
+             whatever the batch and the query tile; and times kernel, plain
              version, a PyTorch yardstick and the card's bound at the shapes
              the paths give them (``ragged_score`` is timed in the plane
-             phase, on the plane's own item tables).
+             phase, on the plane's own item tables; the batch kernel's
+             record is its estimate mode, which the path runs, with the
+             product-only mode beside it as ``product_*``).
 4. slice   — builds a 1,000,000 x 512 index (nlist 1024, 1-bit, fht,
              raw vectors kept) from a seeded, L2-normalized mixture of 1024
              gaussians, then batch_search, single search, per-cluster
              packed scans and an AnnEndpoint under 16 client threads;
              recall@10 against the exact ``bruteforce_topk`` oracle on the
-             card; the kernel path held against the plain path on the CPU.
+             card; the kernel path held against the plain path on the CPU;
+             the fused estimate held on the path's own tables; no [N, Q]
+             elementwise pass left in the 256-query batch's profile.
 5. plane   — builds a 10,000,000 x 128 1-bit plane (nlist 512 a shard, a
              768 MiB shard budget: 14 shards) with ``ShardedAnnBuilder`` from
              a seeded mixture of 4096 centres (the repo's ANN scale leg,
@@ -49,6 +56,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -76,15 +84,27 @@ SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_DEPTH = 64, 64, 16
 SERVE_MAX_BATCH, SERVE_WAIT_MS = 1024, 3.0
 LEG_RECALL_FLOOR = 0.95  # micro.py's floor, set for 4-bit codes: printed, not enforced
 SMALL_PLANE_ROWS, SMALL_PLANE_SHARDS, N_PLANE_HOLD = 200_000, 2, 64
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s off the tensor cores
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s off the
+# tensor cores, dense bf16 FLOP/s on them
+PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 BATCH_CASES = (1, 8, 13, 16, 17, 32, 33, 256)  # packed_dot_batch's nq: every tile, full and ragged
+PROBE_SHARE = 0.25  # share of (cluster, query) pairs probed in the estimate checks' tables
+PATH_PROBE_SHARE = 32 / NLIST  # the slice's nprobe / nlist: the estimate mode is timed at it
+EST_FLOPS = 10  # f32 operations of the fused estimator per probed (query, row)
 TILE_SWEEP = (8, 16, 32, 256)  # nq at which every query tile is timed
+# timings some kernels add to their record: the batch kernel's probed share,
+# f32 bound and product-only mode beside its estimate mode (the mode the
+# path runs), packed_scan's device-only time
+EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", "product_ms",
+                 "product_plain_ms", "product_library_ms", "product_bound_ms", "product_bound_by",
+                 "product_tensor_core_flop", "product_bound_ms_f32_cuda_cores", "device_ms",
+                 "library_device_ms")
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
                          "lakesoul_tpu/vector/kernels.py:158",
-                         "torch.matmul over pre-unpacked f32 bits"),
+                         "none for the estimate mode; torch.matmul over pre-unpacked f32 bits "
+                         "beside the product mode (product_library_ms)"),
     "packed_dot": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:147",
                    "torch.matmul over pre-unpacked f32 bits"),
     "packed_scan": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:40",
@@ -97,6 +117,23 @@ KERNELS = {
 }
 
 
+def ptxas_kernels(log: str) -> list:
+    """nvcc -Xptxas -v's report, one entry a compiled kernel: its mangled
+    name up to the parameter list, registers, spill stores and loads."""
+    out, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1).split("EEv")[0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append([name, int(m.group(1)), *spill])
+    return out
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -106,10 +143,85 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    """Least time on the card for the work (ms) and what bounds it."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+def bound(n_bytes: float, flops: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """Least time on the card for the work (ms) and what bounds it: f32
+    operations at the CUDA-core peak, bf16 tensor-core operations at theirs."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = (flops / PEAK_F32_FLOP_S + bf16_flops / PEAK_BF16_FLOP_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def batch_bound(n: int, d8: int, d: int, nq: int, nlist: int = 0,
+                probed: float | None = None) -> dict:
+    """The batch kernel's bound: three bf16 products (the exact split of the
+    f32 query) on the tensor cores, against each byte read or written once;
+    the f32 product on the CUDA cores beside it, the old design's bound.
+    The estimate mode (``probed``: the share of (row, query) pairs whose
+    cluster the query probes) adds the per-row vectors and the (cluster,
+    query) tables and writes [nq, N]; it needs the product and EST_FLOPS
+    f32 operations only for the probed pairs, +inf elsewhere."""
+    n_bytes = n * d8 + nq * d * 4 + n * nq * 4
+    share, flops = 1.0, 0.0
+    if probed is not None:
+        share = probed
+        n_bytes += n * (3 * 4 + 8) + nlist * nq * (4 + 4 + 1)
+        flops = EST_FLOPS * n * nq * share
+    tc_flop = 3 * 2.0 * n * d * nq * share
+    ms, by = bound(n_bytes, flops, tc_flop)
+    return {"bound_ms": ms, "bound_by": by, "tensor_core_flop": tc_flop,
+            "bound_ms_f32_cuda_cores": bound(n_bytes, flops + 2.0 * n * d * nq * share)[0]}
+
+
+def probed_share(torch, cluster_id, probe_mask) -> float:
+    """The share of (row, query) pairs whose cluster the query probes:
+    ``probe_mask[cluster_id].mean()`` without the [N, nq] gather."""
+    rows = torch.bincount(cluster_id, minlength=probe_mask.shape[0]).double()
+    return float(rows @ probe_mask.double().sum(1)) / (len(cluster_id) * probe_mask.shape[1])
+
+
+def estimate_tables(torch, g, n: int, nq: int, nlist: int, share: float = PROBE_SHARE):
+    """Seeded per-row and per-(cluster, query) inputs of the estimate mode in
+    the resident bundle's layout: rows sorted by cluster, ``share`` of the
+    (cluster, query) pairs probed."""
+    dev = g.device
+    return (torch.rand(n, device=dev, generator=g) * 2 + 0.1,          # norms
+            torch.rand(n, device=dev, generator=g) * 0.3 + 0.6,        # factors
+            torch.randn(n, device=dev, generator=g),                   # code_dot_c
+            torch.sort(torch.randint(0, nlist, (n,), device=dev, generator=g)).values,
+            torch.rand(nlist, nq, device=dev, generator=g) < share,    # probe_mask
+            torch.rand(nlist, nq, device=dev, generator=g) * 4,        # csq_c
+            torch.randn(nlist, nq, device=dev, generator=g))           # csum_c
+
+
+def first_queries(tables, nq: int):
+    """The estimate inputs of the first nq queries: (cluster, query) tables
+    cut to nq columns."""
+    return tuple(t[:, :nq].contiguous() if t.ndim == 2 else t for t in tables)
+
+
+def estimate_check(torch, K, codes, q, tables, d: int) -> float:
+    """``packed_estimate_batch`` against its plain version on the same
+    inputs.  Unprobed values must be +inf in both.  Each other estimate
+    norm² + csq + 2·norm·dot/factor sums terms that cancel, dot itself a sum
+    over bits, so the float32 error of two summation orders scales with the
+    terms: |kernel - plain| <= ATOL + RTOL·(norm² + |csq| + 2·norm/|factor|
+    · (2·|cdc| + 2·bits·|q| + |csum|)/√d)."""
+    norms, factors, cdc, cluster, probe, csq, csum = tables
+    got = K.packed_estimate_batch(codes, q, *tables, d=d)
+    want = K.packed_estimate_batch_torch(codes, q, *tables, d=d)
+    torch.cuda.synchronize()
+    held = torch.isfinite(want)
+    require(torch.equal(got[~held], want[~held]) and bool((want[~held] > 0).all()),
+            "the estimate mode's unprobed values are not all +inf")
+    del want
+    mag = K.packed_dot_batch_torch(codes, q.abs()).T  # [nq, N]: bits·|q|
+    dot_mag = (2.0 * cdc.abs()[None, :] + 2.0 * mag + csum.abs()[cluster].T) / d**0.5
+    del mag
+    scale = (norms * norms)[None, :] + csq.abs()[cluster].T \
+        + (2.0 * norms / factors.abs())[None, :] * dot_mag
+    del dot_mag
+    want = K.packed_estimate_batch_torch(codes, q, *tables, d=d)
+    return max_err(torch, got[held], want[held], scale[held])
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -228,17 +340,20 @@ def phase_kernels(torch, K, R) -> dict:
         for d in (512, 100):
             d8 = (d + 7) // 8
             codes = torch.randint(0, 256, (n, d8), dtype=torch.uint8, device=dev, generator=g)
+            tables = estimate_tables(torch, g, n, max(BATCH_CASES), NLIST)
             # queries scaled like the rotated unit-norm queries of the slice;
-            # every query tile of the batch kernel, full and ragged
+            # every query tile of the batch kernel, full and ragged, both modes
             for nq in BATCH_CASES:
                 q = torch.randn(nq, d, device=dev, generator=g) / d**0.5
                 e = max_err(torch, K.packed_dot_batch(codes, q), K.packed_dot_batch_torch(codes, q))
+                e = max(e, estimate_check(torch, K, codes, q, first_queries(tables, nq), d))
                 errs["packed_dot_batch"] = max(errs["packed_dot_batch"], e)
-                cases += 1
+                cases += 2
             q1 = torch.randn(d, device=dev, generator=g) / d**0.5
             e = max_err(torch, K.packed_dot(codes, q1), K.packed_dot_torch(codes, q1))
             errs["packed_dot"] = max(errs["packed_dot"], e)
             cases += 1
+            del tables
 
     # timings at the shapes the serving path gives the kernels: the resident
     # bundle of 1M rows pads to 1,048,576; batch_search runs chunks of 256
@@ -247,19 +362,48 @@ def phase_kernels(torch, K, R) -> dict:
     d8 = d // 8
     codes = torch.randint(0, 256, (n, d8), dtype=torch.uint8, device=dev, generator=g)
     q = torch.randn(256, d, device=dev, generator=g) / d**0.5
+    tables = estimate_tables(torch, g, n, 256, NLIST)
+
+    # tile invariance, bitwise: a query's values do not depend on the batch
+    # or on the query tile, in either mode
+    prod = {qg: K.packed_dot_batch(codes, q, query_group=qg) for qg in K.QUERY_GROUPS}
+    est = {qg: K.packed_estimate_batch(codes, q, *tables, d=d, query_group=qg)
+           for qg in K.QUERY_GROUPS}
+    q16, t16 = q[:16].contiguous(), first_queries(tables, 16)
+    invariance = {
+        "tiles_nq256_product": all(torch.equal(prod[qg], prod[64]) for qg in K.QUERY_GROUPS),
+        "tiles_nq256_estimate": all(torch.equal(est[qg], est[64]) for qg in K.QUERY_GROUPS),
+        "nq16_of_256_product": torch.equal(prod[K.pick_query_group(256)][:, :16],
+                                           K.packed_dot_batch(codes, q16)),
+        "nq16_of_256_estimate": torch.equal(est[K.pick_query_group(256)][:16],
+                                            K.packed_estimate_batch(codes, q16, *t16, d=d)),
+    }
+    require(all(invariance.values()), f"the batch kernel is not tile-invariant: {invariance}")
+    del prod, est
+    tables = estimate_tables(torch, g, n, 256, NLIST, PATH_PROBE_SHARE)
     bits = K.unpack_bits(codes, d)
 
     def batch_timing(nq: int) -> dict:
-        qn = q[:nq].contiguous()
-        b_ms, b_by = bound(n * d8 + nq * d * 4 + n * nq * 4, 2.0 * n * d * nq)
+        """The estimate mode, which the path runs, in the record's own keys
+        (no single PyTorch call computes it: library_ms is null); the
+        product-only mode beside it, with torch.matmul as its yardstick."""
+        qn, tn = q[:nq].contiguous(), first_queries(tables, nq)
+        share = probed_share(torch, tn[3], tn[4])
         return {
-            "ms": time_ms(torch, lambda: K.packed_dot_batch(codes, qn), 20),
-            "plain_ms": time_ms(torch, lambda: K.packed_dot_batch_torch(codes, qn), 20),
-            "library_ms": time_ms(torch, lambda: torch.matmul(bits, qn.T), 20),
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d8, nq, d],
+            "ms": time_ms(torch, lambda: K.packed_estimate_batch(codes, qn, *tn, d=d), 20),
+            "plain_ms": time_ms(
+                torch, lambda: K.packed_estimate_batch_torch(codes, qn, *tn, d=d), 5),
+            "library_ms": None,
+            **batch_bound(n, d8, d, nq, NLIST, share), "probed_share": share,
+            "shape": [n, d8, nq, d],
+            "product_ms": time_ms(torch, lambda: K.packed_dot_batch(codes, qn), 20),
+            "product_plain_ms": time_ms(torch, lambda: K.packed_dot_batch_torch(codes, qn), 20),
+            "product_library_ms": time_ms(torch, lambda: torch.matmul(bits, qn.T), 20),
+            **{f"product_{k}": v for k, v in batch_bound(n, d8, d, nq).items()},
         }
 
-    rec = {"packed_dot_batch": {**batch_timing(256), "endpoint_nq16": batch_timing(16)}}
+    rec = {"packed_dot_batch": {**batch_timing(256), "endpoint_nq16": batch_timing(16),
+                                "tile_invariance": invariance}}
     b_ms, b_by = bound(n * d8 + d * 4 + n * 4, 2.0 * n * d)
     rec["packed_dot"] = {
         "ms": time_ms(torch, lambda: K.packed_dot(codes, q[0]), 200),
@@ -270,10 +414,10 @@ def phase_kernels(torch, K, R) -> dict:
     del bits
 
     # every query tile of the batch kernel at the batch sizes around the
-    # choice, each held against the plain version, then timed
+    # choice, both modes, each held against the plain version, then timed
     tiles = {}
     for nq in TILE_SWEEP:
-        qn = q[:nq].contiguous()
+        qn, tn = q[:nq].contiguous(), first_queries(tables, nq)
         want = K.packed_dot_batch_torch(codes, qn)
         row = {"picked": K.pick_query_group(nq)}
         for qg in K.QUERY_GROUPS:
@@ -281,9 +425,11 @@ def phase_kernels(torch, K, R) -> dict:
             errs["packed_dot_batch"] = max(errs["packed_dot_batch"], e)
             cases += 1
             row[f"qg{qg}_ms"] = time_ms(torch, lambda: K.packed_dot_batch(codes, qn, query_group=qg), 20)
+            row[f"qg{qg}_estimate_ms"] = time_ms(
+                torch, lambda: K.packed_estimate_batch(codes, qn, *tn, d=d, query_group=qg), 20)
         tiles[f"nq{nq}"] = row
         del want
-    del codes
+    del codes, tables
 
     # packed_scan: one cluster's estimate, at the cluster sizes of the slice
     # and at a whole 1M-row code set
@@ -387,8 +533,28 @@ def profile(torch, fn) -> dict:
     require(device_ms > 0, "the profiler saw no device time")
     return {
         "wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
-        "top": [{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:8]],
+        "top": [{"kernel": k[:120], "ms": ms, "calls": c} for ms, k, c in rows[:12]],
     }
+
+
+def device_ms_per_launch(torch, fn, iters: int, name: str) -> float:
+    """Device time per call of ``fn`` from torch.profiler: the self device
+    time of the kernels whose name holds ``name`` (every kernel for "") over
+    ``iters`` calls, without the host's time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and name in ev.key)
+    require(us > 0, f"the profiler saw no device time for {name or 'the call'}")
+    return us / 1e3 / iters
 
 
 def same_topk(ids_a, d_a, ids_b, d_b) -> bool:
@@ -494,6 +660,8 @@ def phase_slice(torch, K, R) -> dict:
     # ---- end of the counted main path
 
     require(not errors and len(served) == 256, f"serving failed: {errors[:3]}")
+    bundle = index._get_device_bundle()
+    n_pad = len(bundle["codes"])
     on_path = ("packed_dot", "packed_dot_batch", "packed_scan", "bruteforce_distances")
     require(all(launches[k] for k in on_path), f"a kernel never ran on the main path: {launches}")
     for i, (ids_i, d_i) in served.items():
@@ -501,16 +669,49 @@ def phase_slice(torch, K, R) -> dict:
     require(all(len(r) == 10 and np.isfinite(d).all() for r, d in zip(b_ids, b_d)),
             "batch_search returned short or non-finite results")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    index.batch_search(qs_np[:256], params)
+    batch_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
     prof_batch = profile(torch, lambda: index.batch_search(qs_np[:256], params))
     prof_single = profile(torch, lambda: index.search(qs_np[0], params))
+    # one pass over the [N, Q] estimates at the memory's rate takes at least
+    # this long; no kernel that long may remain but the fused kernel and the
+    # top-k's own (radix select, sort)
+    nq_pass_ms = n_pad * 256 * 4 / PEAK_BYTES_S * 1e3
+    allowed = ("packed_batch_kernel", "topk", "radix", "kth", "sort")
+    passes = [r for r in prof_batch["top"] if r["ms"] >= nq_pass_ms
+              and not any(a in r["kernel"].lower() for a in allowed)]
+    require(not passes, f"an [N, Q] pass besides the fused kernel and the top-k: {passes}")
 
     truth = [set(ids[row].tolist()) for row in top.cpu().numpy()]
     recall = recall_at_k(truth, b_ids[:N_ORACLE])
     recall_full = recall_at_k(truth, f_ids)
     require(recall_full >= RECALL_FLOOR, f"recall@10 at nprobe=nlist {recall_full} < {RECALL_FLOOR}")
 
-    # each kernel on the main path's own inputs against its plain version
-    bundle = index._get_device_bundle()
+    # each kernel on the main path's own inputs against its plain version;
+    # the estimate mode's inputs are caught from one 256-query batch_search
+    caught = []
+    fused = K.packed_estimate_batch
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return fused(*args, **kw)
+
+    K.packed_estimate_batch = catch
+    try:
+        index.batch_search(qs_np[:256], params)
+    finally:
+        K.packed_estimate_batch = fused
+    (args, kw), = caught
+    codes_b, q_b, *path_tables = args
+    path_est_err = estimate_check(torch, K, codes_b, q_b, path_tables, kw["d"])
+    path_share = probed_share(torch, path_tables[3], path_tables[4])
+    path_nq16 = torch.equal(
+        fused(*args, **kw)[:16],
+        fused(codes_b, q_b[:16].contiguous(), *first_queries(path_tables, 16), **kw))
+    require(path_nq16, "the path's 16-query estimates differ from its 256-query ones")
+    del caught, args, codes_b, q_b, path_tables
     q_glob = index.quantizer.rotate(queries[:256]).contiguous()
     q_ep = q_glob[:16].contiguous()  # the endpoint's padded batch
     errs = {
@@ -519,6 +720,7 @@ def phase_slice(torch, K, R) -> dict:
                     K.packed_dot_batch_torch(bundle["codes"], q_glob)),
             max_err(torch, K.packed_dot_batch(bundle["codes"], q_ep),
                     K.packed_dot_batch_torch(bundle["codes"], q_ep)),
+            path_est_err,
         ),
         "packed_dot": max_err(torch, K.packed_dot(bundle["codes"], q_glob[0]),
                               K.packed_dot_torch(bundle["codes"], q_glob[0])),
@@ -537,6 +739,9 @@ def phase_slice(torch, K, R) -> dict:
         "plain_ms": time_ms(torch, lambda: K.packed_scan_torch(c, nm, fc, r, d=DIM), 200),
         "library_ms": time_ms(torch, lambda: torch.mv(bits, r), 200),
         "bound_ms": b_ms, "bound_by": b_by, "shape": [n_c, DIM // 8, DIM],
+        "device_ms": device_ms_per_launch(
+            torch, lambda: K.packed_scan(c, nm, fc, r, d=DIM), 200, "packed_scan_kernel"),
+        "library_device_ms": device_ms_per_launch(torch, lambda: torch.mv(bits, r), 200, ""),
     }
     del scans, bits
 
@@ -560,6 +765,8 @@ def phase_slice(torch, K, R) -> dict:
         serving_batches=stats["batches"], recall_at_10_nprobe32=recall,
         recall_at_10_full_probe=recall_full, peak_device_gb=peak_gb,
         cluster_scans=launches["packed_scan"], cluster_scan_s=scan_s, oracle_s=oracle_s,
+        batch_peak_device_gb=batch_peak_gb, nq_pass_floor_ms=nq_pass_ms,
+        path_estimates_nq16_of_256_bitwise=path_nq16, path_probed_share_256=path_share,
         launches=launches, main_path_max_abs_err=errs, plain_path_held=f"{held}/{N_HOLD}",
         plain_path_s=hold_s, profile_batch_256=prof_batch, profile_single=prof_single,
         packed_scan_timing=scan_timing,
@@ -810,9 +1017,8 @@ def main() -> int:
     # 2. build every kernel from csrc/
     t = time.perf_counter()
     report = _build.build()
-    ptxas = [ln.strip() for r in report.values() for ln in r["log"].splitlines() if "Used" in ln]
     emit("build", seconds=time.perf_counter() - t, sources=list(_build.SOURCES),
-         built=sorted(report), ptxas=ptxas)
+         built=sorted(report), ptxas=[k for r in report.values() for k in ptxas_kernels(r["log"])])
 
     kernels = phase_kernels(torch, K, R)
     sl = phase_slice(torch, K, R)
@@ -831,7 +1037,7 @@ def main() -> int:
                                pl["errs"].get(name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-            "library_call": library_call,
+            "library_call": library_call, **{k: t[k] for k in EXTRA_TIMINGS if k in t},
         })
     require(all(r["launches"] > 0 for r in record), "a kernel never ran on its path")
     print(json.dumps({"kernels": record}), flush=True)

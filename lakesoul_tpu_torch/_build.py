@@ -10,9 +10,12 @@ name carries a hash of its source and flags, so an edited source is rebuilt
 and a stale library is never loaded.  :func:`build` starts one ``nvcc`` per
 source, all together, and waits for them all.
 
-Every library exports ``ls_cuda_error_string`` (``csrc/ls_common.cuh``),
-and :func:`launch` calls one of its entry points on the current stream and
-raises on the ``cudaError_t`` it returns.
+Every library exports ``ls_cuda_error_string`` (``csrc/ls_common.cuh``).
+:func:`entry` binds one C entry point once (argument types, the error
+string) and returns its launcher, which calls it on the current stream and
+raises on the ``cudaError_t`` it returns.  The launcher is the per-launch
+host path of every kernel wrapper, so it does as little as it can: it
+enters the device's context only when that device is not the current one.
 
 Nothing CUDA-specific happens at import time: the CPU tests import this
 module and never call it.
@@ -28,6 +31,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -106,11 +110,30 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
-    """Call ``lib.fn(*args, stream)`` on ``device``'s current stream; raise
-    if the launch was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err:
-        raise RuntimeError(f"{fn} launch failed: {lib.ls_cuda_error_string(err).decode()}")
+def current_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``, from
+    PyTorch's own binding (the one its compiled kernels launch with),
+    without building a ``torch.cuda.Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def entry(lib: ctypes.CDLL, name: str, argtypes) -> Callable[..., None]:
+    """Bind ``lib.name`` once, taking ``argtypes`` then the stream and
+    returning a ``cudaError_t``, and return its launcher
+    ``launch(device, *args)``: the call on ``device``'s current stream,
+    raising if the launch was refused."""
+    fn = getattr(lib, name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(device: torch.device, *args) -> None:
+        current = torch.cuda.current_device()
+        if device.index is None or device.index == current:
+            err = fn(*args, current_stream(current))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, current_stream(device.index))
+        if err:
+            raise RuntimeError(f"{name} launch failed: {lib.ls_cuda_error_string(err).decode()}")
+
+    return launch

@@ -82,12 +82,9 @@ def plan_items(pairs_q, pairs_c, csq, csum, tile_start, tile_count):
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ragged_score")
-    ptr = ctypes.c_void_p
-    lib.ls_ragged_score.argtypes = [ptr] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ptr]
-    lib.ls_ragged_score.restype = ctypes.c_int  # a cudaError_t
-    return lib
+def _launcher():
+    return _build.entry(_build.load("ragged_score"), "ls_ragged_score",
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
 
 
 def ragged_score_torch(item_q: torch.Tensor, item_tile: torch.Tensor, csq: torch.Tensor,
@@ -148,10 +145,9 @@ def ragged_score(item_q, item_tile, csq, csum, q_glob: torch.Tensor, codes: torc
     m = len(item_q)
     out = torch.empty((m, tile), dtype=torch.float32, device=dev)
     if m:
-        _build.launch(_lib(), "ls_ragged_score", dev, ints[0].data_ptr(), ints[1].data_ptr(),
-                      floats[0].data_ptr(), floats[1].data_ptr(), q_glob.data_ptr(),
-                      codes.data_ptr(), a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                      out.data_ptr(), m, codes.shape[1], tile)
+        _launcher()(dev, ints[0].data_ptr(), ints[1].data_ptr(), floats[0].data_ptr(),
+                    floats[1].data_ptr(), q_glob.data_ptr(), codes.data_ptr(), a.data_ptr(),
+                    b.data_ptr(), h.data_ptr(), out.data_ptr(), m, codes.shape[1], tile)
         ragged_score.launches += 1
     return out
 

@@ -7,10 +7,13 @@ code × query products (``lakesoul_tpu_torch/csrc/packed_dot.cu``):
 - :func:`packed_dot` — bits [N, 8·d8] · q [d] → [N].  Replaces
   ``packed_dot_pallas`` → ``_packed_dot_kernel``.  Bound by bytes: 71 MB at
   N = 1,048,576, d = 512, ~21 µs at 3.35 TB/s.
-- :func:`packed_dot_batch` — bits · Qᵀ, Q [nq, d] → [N, nq].  Replaces
-  ``packed_dot_batch_pallas`` → ``_packed_dot_batch_kernel``.  Bound by
-  operations: 2.75e11 f32 FLOP at N = 1,048,576, d = 512, nq = 256, ~4.1 ms at
-  the 67 TFLOP/s f32 peak (its 1.14 GB of traffic take ~0.34 ms).
+- :func:`packed_dot_batch` — bits · Qᵀ, Q [nq, d] → [N, nq], and
+  :func:`packed_estimate_batch`, the same kernel with the estimator, the
+  probe mask and the ``[Q, N]`` layout in its epilogue.  Replace
+  ``packed_dot_batch_pallas`` → ``_packed_dot_batch_kernel`` (and the jnp
+  estimator around it).  bf16 tensor cores over an exact three-plane split
+  of the query (:func:`split_bf16x3`): 8.25e11 FLOP at N = 1,048,576,
+  d = 512, nq = 256, ~0.83 ms at the 989 TFLOP/s bf16 peak.
 - :func:`packed_scan` — one cluster's RaBitQ estimate, bits·q with the
   estimator fused → [N].  Replaces ``packed_scan_pallas`` →
   ``_packed_scan_kernel``.  Bound by bytes, like ``packed_dot``.
@@ -75,53 +78,54 @@ def _pad_tail(a: torch.Tensor, n_pad: int, const=0) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("packed_dot")
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ls_packed_dot.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-    lib.ls_packed_dot_batch.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
-    lib.ls_packed_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
-    for fn in (lib.ls_packed_dot, lib.ls_packed_dot_batch, lib.ls_packed_scan):
-        fn.restype = i32  # a cudaError_t
-    return lib
+_PTR, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+# each C entry point's arguments before the stream
+_ENTRY_POINTS = {
+    "ls_packed_dot": ("packed_dot", [_PTR, _PTR, _PTR, _I64, _I32, _I32]),
+    "ls_packed_dot_batch": ("packed_dot", [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I32]),
+    "ls_packed_estimate_batch": ("packed_dot", [_PTR] * 10 + [_I64, _I32, _I32, _I32, _F32, _I32]),
+    "ls_packed_scan": ("packed_dot", [_PTR] * 5 + [_I64, _I32, _I32, _F32]),
+    "ls_bruteforce_distances": ("bruteforce", [_PTR, _PTR, _PTR, _I64, _I32]),
+}
 
 
 @functools.cache
-def _bruteforce_lib() -> ctypes.CDLL:
-    lib = _build.load("bruteforce")
-    lib.ls_bruteforce_distances.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.ls_bruteforce_distances.restype = ctypes.c_int  # a cudaError_t
-    return lib
+def _launcher(name: str):
+    """The bound launcher of one C entry point, built and loaded at first use."""
+    source, argtypes = _ENTRY_POINTS[name]
+    return _build.entry(_build.load(source), name, argtypes)
 
 
-def _check(codes: torch.Tensor, q: torch.Tensor, q_ndim: int) -> None:
-    if codes.dtype != torch.uint8 or codes.ndim != 2:
+def _check(codes: torch.Tensor, q: torch.Tensor, q_ndim: int, **rows: torch.Tensor) -> None:
+    """One pass over a kernel's inputs: codes [N, d8] uint8, a q_ndim-D f32
+    query no wider than the code bits, and per-row f32 vectors [N], all
+    contiguous on one cpu or cuda device.  It runs on every launch, so the
+    common case is a handful of attribute reads; the messages are built
+    only on failure."""
+    if codes.dtype is not torch.uint8 or codes.ndim != 2:
         raise ValueError(f"codes must be [N, d8] uint8, got {codes.dtype} {tuple(codes.shape)}")
-    if q.dtype != torch.float32 or q.ndim != q_ndim:
+    if q.dtype is not torch.float32 or q.ndim != q_ndim:
         raise ValueError(f"query must be {q_ndim}-D float32, got {q.dtype} {tuple(q.shape)}")
-    if q.shape[-1] > 8 * codes.shape[1]:
-        raise ValueError(f"query width {q.shape[-1]} exceeds the {8 * codes.shape[1]} code bits")
-    if codes.device != q.device or codes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"codes on {codes.device} and query on {q.device}: need one cpu or cuda device")
+    n, d8 = codes.shape
+    if q.shape[-1] > 8 * d8:
+        raise ValueError(f"query width {q.shape[-1]} exceeds the {8 * d8} code bits")
+    dev = codes.device
+    if q.device != dev or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"codes on {dev} and query on {q.device}: need one cpu or cuda device")
     if not (codes.is_contiguous() and q.is_contiguous()):
         raise ValueError("codes and query must be contiguous")
+    for name, t in rows.items():
+        if (t.dtype is not torch.float32 or t.shape != (n,) or t.device != dev
+                or not t.is_contiguous()):
+            _check_tensor(name, t, torch.float32, (n,), dev)
 
 
-def _check_rows(n: int, device: torch.device, **vecs: torch.Tensor) -> None:
-    """Per-row f32 vectors of a kernel: [n], contiguous, on ``device``."""
-    for name, t in vecs.items():
-        if t.dtype != torch.float32 or t.shape != (n,):
-            raise ValueError(f"{name} must be [{n}] float32, got {t.dtype} {tuple(t.shape)}")
-        if t.device != device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {device}")
-
-
-def _launch(fn: str, device: torch.device, *args) -> None:
-    _build.launch(_lib(), fn, device, *args)
+def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                  dev: torch.device) -> None:
+    if t.dtype != dtype or t.shape != shape:
+        raise ValueError(f"{name} must be {list(shape)} {dtype}, got {t.dtype} {tuple(t.shape)}")
+    if t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {dev}")
 
 
 def packed_dot_torch(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -140,10 +144,10 @@ def packed_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if codes.device.type == "cpu":
         return packed_dot_torch(codes, q)
     n, d8 = codes.shape
-    out = torch.empty(n, dtype=torch.float32, device=codes.device)
+    out = codes.new_empty(n, dtype=torch.float32)
     if n:
-        _launch("ls_packed_dot", codes.device, codes.data_ptr(), q.data_ptr(),
-                out.data_ptr(), n, d8, q.shape[0])
+        _launcher("ls_packed_dot")(codes.device, codes.data_ptr(), q.data_ptr(),
+                                   out.data_ptr(), n, d8, q.shape[0])
         packed_dot.launches += 1
     return out
 
@@ -151,38 +155,124 @@ def packed_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 packed_dot.launches = 0
 
 
-# the batch kernel's query tiles: a block takes 8·g queries (packed_dot.cu)
-QUERY_GROUPS = (2, 4, 8)
+def split_bf16x3(q: torch.Tensor):
+    """f32 → three bf16 planes (hi, mid, lo) with hi + mid + lo == q: the
+    split the batch kernel makes of its queries in its prologue, with the
+    same round-to-nearest arithmetic (bits are exact in bf16, so three bf16
+    products give the f32 product up to summation order)."""
+    hi = q.to(torch.bfloat16)
+    r1 = q - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+# the batch kernel's query tiles, queries a block (packed_dot.cu); the tile
+# changes speed only: every value is the same whatever the tile
+QUERY_GROUPS = (16, 32, 64)
 
 
 def pick_query_group(nq: int) -> int:
-    """The narrowest query tile that holds nq queries; the widest past 32."""
-    return next((g for g in QUERY_GROUPS if nq <= 8 * g), QUERY_GROUPS[-1])
+    """The narrowest query tile that holds nq queries; the widest past 64."""
+    return next((g for g in QUERY_GROUPS if nq <= g), QUERY_GROUPS[-1])
+
+
+def _query_group(nq: int, query_group: int | None) -> int:
+    if query_group is None:
+        return pick_query_group(nq)
+    if query_group not in QUERY_GROUPS:
+        raise ValueError(f"query_group must be one of {QUERY_GROUPS}, got {query_group}")
+    return query_group
 
 
 def packed_dot_batch(codes: torch.Tensor, q: torch.Tensor, *,
                      query_group: int | None = None) -> torch.Tensor:
-    """bits·Qᵀ over [N, d8] packed codes and Q [nq, d] → [N, nq] f32.
+    """bits·Qᵀ over [N, d8] packed codes and Q [nq, d] → [N, nq] f32: the
+    product-only mode of the batch kernel.
 
     ``query_group`` forces the kernel's query tile (one of QUERY_GROUPS),
     to time one tile against another; None picks by nq."""
     _check(codes, q, 2)
-    if query_group is not None and query_group not in QUERY_GROUPS:
-        raise ValueError(f"query_group must be one of {QUERY_GROUPS}, got {query_group}")
+    g = _query_group(q.shape[0], query_group)
     if codes.device.type == "cpu":
         return packed_dot_batch_torch(codes, q)
     n, d8 = codes.shape
     nq, d = q.shape
-    out = torch.empty((n, nq), dtype=torch.float32, device=codes.device)
+    out = codes.new_empty((n, nq), dtype=torch.float32)
     if n and nq:
-        g = pick_query_group(nq) if query_group is None else query_group
-        _launch("ls_packed_dot_batch", codes.device, codes.data_ptr(), q.data_ptr(),
-                out.data_ptr(), n, d8, d, nq, g)
+        _launcher("ls_packed_dot_batch")(codes.device, codes.data_ptr(), q.data_ptr(),
+                                         out.data_ptr(), n, d8, d, nq, g)
         packed_dot_batch.launches += 1
     return out
 
 
-packed_dot_batch.launches = 0
+packed_dot_batch.launches = 0  # counts both modes: one TPU kernel's port
+
+
+def packed_estimate_batch_torch(codes, q_glob, norms, factors, code_dot_c, cluster_id,
+                                probe_mask, csq_c, csum_c, *, d: int) -> torch.Tensor:
+    """Plain version of :func:`packed_estimate_batch`: the product, the
+    estimator over [N, Q], the mask, then the [Q, N] layout."""
+    bq = packed_dot_batch_torch(codes, q_glob)
+    est = _estimate(bq, norms[:, None], factors[:, None], code_dot_c[:, None],
+                    csq_c[cluster_id], csum_c[cluster_id], d)
+    est.masked_fill_(~probe_mask[cluster_id], math.inf)
+    return est.T.contiguous()
+
+
+def _check_cluster_ids(cluster_id: torch.Tensor, nlist: int) -> None:
+    """Every cluster id in [0, nlist): the kernel reads the (cluster, query)
+    tables at them unchecked.  On the CPU a bad id raises at once; on the
+    card the check is a device-side assertion, as a torch gather's bounds
+    check is, so the host does not wait for the device."""
+    if not len(cluster_id):
+        return
+    lo, hi = torch.aminmax(cluster_id)
+    ok = (lo >= 0) & (hi < nlist)
+    if cluster_id.device.type == "cpu":
+        if not ok:
+            raise ValueError(f"cluster_id must lie in [0, {nlist}), got [{int(lo)}, {int(hi)}]")
+    else:
+        torch._assert_async(ok, f"cluster_id must lie in [0, {nlist})")
+
+
+def packed_estimate_batch(codes: torch.Tensor, q_glob: torch.Tensor, norms: torch.Tensor,
+                          factors: torch.Tensor, code_dot_c: torch.Tensor,
+                          cluster_id: torch.Tensor, probe_mask: torch.Tensor,
+                          csq_c: torch.Tensor, csum_c: torch.Tensor, *, d: int,
+                          query_group: int | None = None) -> torch.Tensor:
+    """RaBitQ estimates [nq, N] f32 of Q globally rotated queries ``q_glob``
+    [nq, ≤ 8·d8] against every row of the packed codes [N, d8], +inf where
+    the row's cluster is not probed for the query: the estimate mode of the
+    batch kernel (see :func:`_estimate`).
+
+    Per row: ``norms``, ``factors``, ``code_dot_c`` [N] f32 and
+    ``cluster_id`` [N] int64, each id in [0, nlist); per (cluster, query):
+    ``probe_mask`` [nlist, nq] bool, ``csq_c`` and ``csum_c`` [nlist, nq]
+    f32.  ``d`` scales the estimate (√d)."""
+    _check(codes, q_glob, 2, norms=norms, factors=factors, code_dot_c=code_dot_c)
+    n, d8 = codes.shape
+    nq = q_glob.shape[0]
+    dev = codes.device
+    _check_tensor("cluster_id", cluster_id, torch.int64, (n,), dev)
+    nlist = probe_mask.shape[0] if probe_mask.ndim == 2 else -1
+    _check_tensor("probe_mask", probe_mask, torch.bool, (nlist, nq), dev)
+    _check_tensor("csq_c", csq_c, torch.float32, (nlist, nq), dev)
+    _check_tensor("csum_c", csum_c, torch.float32, (nlist, nq), dev)
+    _check_cluster_ids(cluster_id, nlist)
+    g = _query_group(nq, query_group)
+    if dev.type == "cpu":
+        return packed_estimate_batch_torch(codes, q_glob, norms, factors, code_dot_c,
+                                           cluster_id, probe_mask, csq_c, csum_c, d=d)
+    out = codes.new_empty((nq, n), dtype=torch.float32)
+    if n and nq:
+        _launcher("ls_packed_estimate_batch")(
+            dev, codes.data_ptr(), q_glob.data_ptr(), norms.data_ptr(), factors.data_ptr(),
+            code_dot_c.data_ptr(), cluster_id.data_ptr(), probe_mask.data_ptr(),
+            csq_c.data_ptr(), csum_c.data_ptr(), out.data_ptr(), n, d8, q_glob.shape[1], nq,
+            math.sqrt(d), g)
+        packed_dot_batch.launches += 1
+    return out
 
 
 def packed_scan_torch(codes, norms, factors, q_rot, *, d: int) -> torch.Tensor:
@@ -196,16 +286,15 @@ def packed_scan(codes: torch.Tensor, norms: torch.Tensor, factors: torch.Tensor,
     """Estimated squared distances of one cluster's packed codes [N, d8] to
     the rotated query residual ``q_rot`` [≤ 8·d8] → [N] f32.  Bits past
     ``len(q_rot)`` get zero weight; ``d`` scales the estimate (√d)."""
-    _check(codes, q_rot, 1)
-    n, d8 = codes.shape
-    _check_rows(n, codes.device, norms=norms, factors=factors)
+    _check(codes, q_rot, 1, norms=norms, factors=factors)
     if codes.device.type == "cpu":
         return packed_scan_torch(codes, norms, factors, q_rot, d=d)
-    out = torch.empty(n, dtype=torch.float32, device=codes.device)
+    n, d8 = codes.shape
+    out = torch.empty_like(norms)
     if n:
-        _launch("ls_packed_scan", codes.device, codes.data_ptr(), q_rot.data_ptr(),
-                norms.data_ptr(), factors.data_ptr(), out.data_ptr(), n, d8, q_rot.shape[0],
-                math.sqrt(d))
+        _launcher("ls_packed_scan")(codes.device, codes.data_ptr(), q_rot.data_ptr(),
+                                    norms.data_ptr(), factors.data_ptr(), out.data_ptr(), n, d8,
+                                    q_rot.shape[0], math.sqrt(d))
         packed_scan.launches += 1
     return out
 
@@ -231,13 +320,13 @@ def bruteforce_distances(vectors: torch.Tensor, query: torch.Tensor) -> torch.Te
     n, dd = vectors.shape
     if vectors.device.type not in ("cpu", "cuda") or not vectors.is_contiguous():
         raise ValueError(f"vectors must be contiguous on a cpu or cuda device, not {vectors.device}")
-    _check_rows(dd, vectors.device, query=query)
+    _check_tensor("query", query, torch.float32, (dd,), vectors.device)
     if vectors.device.type == "cpu":
         return bruteforce_distances_torch(vectors, query)
-    out = torch.empty(n, dtype=torch.float32, device=vectors.device)
+    out = vectors.new_empty(n)
     if n:
-        _build.launch(_bruteforce_lib(), "ls_bruteforce_distances", vectors.device,
-                      vectors.data_ptr(), query.data_ptr(), out.data_ptr(), n, dd)
+        _launcher("ls_bruteforce_distances")(vectors.device, vectors.data_ptr(),
+                                             query.data_ptr(), out.data_ptr(), n, dd)
         bruteforce_distances.launches += 1
     return out
 
@@ -319,15 +408,13 @@ def exact_distances(sub: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def _batched_rerank_topk(est, raw, queries, *, s: int, k: int, do_rerank: bool):
-    """Shared tail of the batched resident search: [N, Q] estimates →
-    (dists [Q, k], indices [Q, k]), with optional exact re-rank."""
-    # top-k along the last axis of the [Q, N] view, as the reference does;
-    # along axis 0 of [N, Q] torch's radix top-k was the largest device cost
-    # of the batch at serving size (chip_smoke.py's profile)
-    est_t = est.T
+    """Shared tail of the batched resident search: [Q, N] estimates →
+    (dists [Q, k], indices [Q, k]), with optional exact re-rank.  The
+    estimates come in the layout the top-k reads, along the last axis, as
+    the reference takes it (its ``est.T``)."""
     if not do_rerank:
-        return _smallest(est_t, k)
-    est_s, idx_s = _smallest(est_t, s)  # [Q, s]
+        return _smallest(est, k)
+    est_s, idx_s = _smallest(est, s)  # [Q, s]
     exact = exact_distances(raw[idx_s], queries)  # gathers [Q, s, d]
     exact = exact.masked_fill(~torch.isfinite(est_s), math.inf)
     dists, order = _smallest(exact, k)
@@ -338,13 +425,10 @@ def _fused_search_resident_batch(codes, norms, factors, code_dot_c, cluster_id,
                                  probe_mask, csq_c, csum_c, q_glob, raw, queries,
                                  *, d, s, k, do_rerank):
     """Batched device-resident search: Q queries share one pass over the
-    packed codes, which stay packed in device memory."""
-    bq = packed_dot_batch(codes, q_glob)  # [N, Q]
-    est = _estimate(
-        bq, norms[:, None], factors[:, None], code_dot_c[:, None],
-        csq_c[cluster_id], csum_c[cluster_id], d,
-    )
-    est.masked_fill_(~probe_mask[cluster_id], math.inf)  # [N, Q], in place: 1 GB at serving size
+    packed codes, which stay packed in device memory.  One kernel gives the
+    masked [Q, N] estimates; no [N, Q] intermediate exists."""
+    est = packed_estimate_batch(codes, q_glob, norms, factors, code_dot_c, cluster_id,
+                                probe_mask, csq_c, csum_c, d=d)
     return _batched_rerank_topk(est, raw, queries, s=s, k=k, do_rerank=do_rerank)
 
 

@@ -12,7 +12,8 @@ At query time with rotated residual q = P(query - c):
   ||v - query||² = norm² + ||q||² - 2<r, q>
 and <o_bar, q> needs only the {0,1} product:  b·q = 2·(bits·q) - sum(q).
 
-Rotation and quantization run on the rotator's device.  The rotator's
+Rotation and quantization run on the rotator's device: ``device=None``
+is the CUDA card, as at every entry point (``device.resolve_device``).  The rotator's
 parameters come from the same numpy draws as the JAX package's (signs for
 "fht", the QR of a gaussian matrix for "matrix"), so one seed gives one
 rotation in both packages.
@@ -25,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from lakesoul_tpu_torch.device import resolve_device
 from lakesoul_tpu_torch.errors import VectorIndexError
 
 _MSB_FIRST = (7, 6, 5, 4, 3, 2, 1, 0)
@@ -43,10 +45,10 @@ class Rotator:
     ``"matrix"`` = dense random orthonormal matrix, ``"identity"``."""
 
     def __init__(self, dim: int, kind: str = "fht", seed: int = 42, rounds: int = 3,
-                 *, device: torch.device | str = "cpu"):
+                 *, device: torch.device | str | None = None):
         self.dim = dim
         self.kind = kind
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.padded_dim = next_pow2(dim) if kind == "fht" else dim
         rng = np.random.default_rng(seed)
         if kind == "fht":
@@ -113,7 +115,7 @@ class RabitqQuantizer:
     """Quantize cluster residuals → packed codes + per-vector factors."""
 
     def __init__(self, dim: int, *, rotator: str = "fht", seed: int = 42,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.dim = dim
         self.rotator = Rotator(dim, rotator, seed, device=device)
         self.padded_dim = self.rotator.padded_dim

@@ -96,7 +96,7 @@ def test_bits_past_d_get_zero_weight():
 
 
 @pytest.mark.parametrize(
-    "nq, group", [(1, 2), (8, 2), (16, 2), (17, 4), (32, 4), (33, 8), (256, 8)]
+    "nq, group", [(1, 16), (8, 16), (16, 16), (17, 32), (32, 32), (33, 64), (64, 64), (256, 64)]
 )
 def test_batch_query_tile_is_the_narrowest_that_holds_nq(nq, group):
     assert K.pick_query_group(nq) == group

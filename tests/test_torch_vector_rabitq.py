@@ -28,7 +28,7 @@ from lakesoul_tpu_torch.vector import rabitq as T
 @pytest.mark.parametrize("kind", ["fht", "identity"])
 def test_rotator_is_bit_identical(kind, dim):
     x = np.random.default_rng(dim).normal(size=(40, dim)).astype(np.float32)
-    ref, port = R.Rotator(dim, kind, seed=7), T.Rotator(dim, kind, seed=7)
+    ref, port = R.Rotator(dim, kind, seed=7), T.Rotator(dim, kind, seed=7, device="cpu")
     assert port.padded_dim == ref.padded_dim
     np.testing.assert_array_equal(port(x).numpy(), ref(x))
     np.testing.assert_array_equal(port(x[3]).numpy(), ref(x[3]))  # 1-D input
@@ -37,19 +37,19 @@ def test_rotator_is_bit_identical(kind, dim):
 @pytest.mark.parametrize("dim", [64, 100])
 def test_matrix_rotator(dim):
     x = np.random.default_rng(dim).normal(size=(40, dim)).astype(np.float32)
-    ref, port = R.Rotator(dim, "matrix", seed=7), T.Rotator(dim, "matrix", seed=7)
+    ref, port = R.Rotator(dim, "matrix", seed=7), T.Rotator(dim, "matrix", seed=7, device="cpu")
     np.testing.assert_array_equal(port.matrix.numpy(), ref.matrix)  # the same QR draw
     np.testing.assert_allclose(port(x).numpy(), ref(x), atol=1e-5)
 
 
 def test_fht_preserves_norm_and_unknown_rotator_raises():
     x = torch.randn(8, 256, generator=torch.Generator().manual_seed(0))
-    y = T.Rotator(256, "fht", seed=1)(x)
+    y = T.Rotator(256, "fht", seed=1, device="cpu")(x)
     torch.testing.assert_close(y.norm(dim=1), x.norm(dim=1), rtol=1e-5, atol=1e-5)
     from lakesoul_tpu_torch.errors import VectorIndexError
 
     with pytest.raises(VectorIndexError):
-        T.Rotator(8, "nope")
+        T.Rotator(8, "nope", device="cpu")
 
 
 @pytest.mark.parametrize("d", [1, 7, 64, 100, 512])
@@ -69,7 +69,7 @@ def test_quantize_matches_reference(kind, dim):
     v = rng.normal(size=(300, dim)).astype(np.float32)
     c = rng.normal(size=dim).astype(np.float32)
     ref = R.RabitqQuantizer(dim, rotator=kind, seed=3).quantize(v, c)
-    port = T.RabitqQuantizer(dim, rotator=kind, seed=3).quantize(torch.from_numpy(v), torch.from_numpy(c))
+    port = T.RabitqQuantizer(dim, rotator=kind, seed=3, device="cpu").quantize(torch.from_numpy(v), torch.from_numpy(c))
     codes, norms, factors, cdc = (t.numpy() for t in port)
     if kind == "fht":
         np.testing.assert_array_equal(codes, ref[0])
@@ -88,7 +88,7 @@ def test_quantize_per_row_centroids_equals_per_cluster_calls():
     v = torch.from_numpy(rng.normal(size=(60, 100)).astype(np.float32))
     cents = torch.from_numpy(rng.normal(size=(3, 100)).astype(np.float32))
     assign = torch.from_numpy(rng.integers(0, 3, 60))
-    q = T.RabitqQuantizer(100, seed=2)
+    q = T.RabitqQuantizer(100, seed=2, device="cpu")
     whole = q.quantize(v, cents[assign])
     for c in range(3):
         m = assign == c
@@ -98,7 +98,7 @@ def test_quantize_per_row_centroids_equals_per_cluster_calls():
 
 
 def test_zero_residual_gets_factor_one():
-    q = T.RabitqQuantizer(64, seed=0)
+    q = T.RabitqQuantizer(64, seed=0, device="cpu")
     c = torch.ones(64)
     _, norms, factors, _ = q.quantize(c[None, :].clone(), c)
     assert norms.item() == 0.0 and factors.item() == 1.0
@@ -115,7 +115,7 @@ def test_estimate_distances_matches_reference():
     q_rot = rq.rotate_query(query, c)
     want = np.asarray(R.estimate_distances(jnp.asarray(codes), jnp.asarray(norms),
                                            jnp.asarray(factors), jnp.asarray(q_rot), d=dim))
-    port_q = T.RabitqQuantizer(dim, seed=4)
+    port_q = T.RabitqQuantizer(dim, seed=4, device="cpu")
     q_rot_port = port_q.rotate_query(query, c)
     np.testing.assert_array_equal(q_rot_port.numpy(), q_rot)
     got = T.estimate_distances(torch.from_numpy(codes), torch.from_numpy(norms),
