@@ -18,7 +18,10 @@ Each phase prints one JSON line with its own timing:
              the rtol is of the magnitude of the terms an estimate sums,
              see ``estimate_check`` and ``ragged_check``); requires a
              query's values from the batch kernel to be bitwise the same
-             whatever the batch and the query tile; and times kernel, plain
+             whatever the batch and the query tile; holds ``ragged_score``
+             on ragged plans at d 128, 512, 100 and 130, with tiles that
+             more than four chunks of queries name, and at a 64-row tile;
+             and times kernel, plain
              version, a PyTorch yardstick and the card's bound at the shapes
              the paths give them (``ragged_score`` is timed in the plane
              phase, on the plane's own item tables; the batch kernel's
@@ -40,8 +43,11 @@ Each phase prints one JSON line with its own timing:
              64 pipelining clients, and recall@10 against the
              ``bruteforce_topk`` oracle over all 10M rows; holds
              ``ragged_score`` against its plain version on every shard's
-             real item tables, and the plane's kernel path against the same
-             plane on the CPU (a 2-shard, 200k-row plane).
+             real item tables, requires a query's item scores bitwise the
+             same in the 1024-query tables, in 16 queries' and alone, and
+             the grouping by tile to make no host-device sync; and holds
+             the plane's kernel path against the same plane on the CPU (a
+             2-shard, 200k-row plane).
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
@@ -92,13 +98,15 @@ PROBE_SHARE = 0.25  # share of (cluster, query) pairs probed in the estimate che
 PATH_PROBE_SHARE = 32 / NLIST  # the slice's nprobe / nlist: the estimate mode is timed at it
 EST_FLOPS = 10  # f32 operations of the fused estimator per probed (query, row)
 TILE_SWEEP = (8, 16, 32, 256)  # nq at which every query tile is timed
+RAGGED_CHUNK = 32  # queries a chunk in csrc/ragged_score.cu: a heavy tile loops over several
+RAGGED_WIDTHS = (128, 512, 100, 130)  # d of the ragged checks: one slab, four; 130: 4-byte copies
 # timings some kernels add to their record: the batch kernel's probed share,
 # f32 bound and product-only mode beside its estimate mode (the mode the
 # path runs), packed_scan's device-only time
 EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", "product_ms",
                  "product_plain_ms", "product_library_ms", "product_bound_ms", "product_bound_by",
                  "product_tensor_core_flop", "product_bound_ms_f32_cuda_cores", "device_ms",
-                 "library_device_ms")
+                 "library_device_ms", "grouping_ms", "grouping_device_ms")
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -266,10 +274,11 @@ def read_launches(K, R) -> dict:
     return {name: w.launches for name, w in wrappers(K, R).items()}
 
 
-def ragged_plan(torch, R, rng, d: int, dev, *, nlist=40, nq=37, tile=128):
+def ragged_plan(torch, R, rng, d: int, dev, *, nlist=40, nq=37, tile=128, heavy=False):
     """A seeded shard in the resident layout (random cluster sizes, some 0,
     then one tile of pad rows at the end) and a ragged probe plan over it,
-    through ``plan_items``."""
+    through ``plan_items``.  ``heavy``: every query also probes the largest
+    cluster, so each of its tiles is named by all ``nq`` queries."""
     counts = rng.integers(0, 700, nlist)
     counts[::7] = 0
     padded = (counts + tile - 1) // tile * tile
@@ -289,6 +298,8 @@ def ragged_plan(torch, R, rng, d: int, dev, *, nlist=40, nq=37, tile=128):
     pairs_q, pairs_c = [], []
     for q in range(nq):
         probed = np.sort(rng.choice(nlist, rng.integers(1, nlist), replace=False))
+        if heavy:
+            probed = np.union1d(probed, [int(np.argmax(counts))])
         pairs_q += [q] * len(probed)
         pairs_c += probed.tolist()
     csq = rng.random(len(pairs_q)).astype(np.float32) * 5
@@ -320,13 +331,41 @@ def ragged_bound(items, q_glob, codes, tile=128) -> tuple[float, str, dict]:
     read once (the tiles the items name, their a/b/h, the item tables, the
     query rows), the output written once; 2·M·tile·d FLOP."""
     m, d = len(items[0]), codes.shape[1]
-    tiles = len(np.unique(items[1]))
+    per_tile = np.bincount(np.asarray(items[1]))
+    tiles = int((per_tile > 0).sum())
     n_bytes = tiles * tile * (d + 3) * 4 + m * 16 + q_glob.shape[0] * d * 4 + m * tile * 4
     reread = m * tile * d * 4 + 3 * m * tile * 4 + m * tile * 4 + m * d * 4
     ms, by = bound(n_bytes, 2.0 * m * tile * d)
     return ms, by, {"items": m, "tiles": tiles, "queries": int(q_glob.shape[0]), "d": d,
                     "bytes": n_bytes, "bytes_reread_per_item": reread,
-                    "bound_ms_reread_per_item": bound(reread, 0.0)[0]}
+                    "bound_ms_reread_per_item": bound(reread, 0.0)[0],
+                    "heaviest_tile_items": int(per_tile.max(initial=0)),
+                    "mean_items_per_probed_tile": m / max(tiles, 1)}
+
+
+def ragged_invariance(torch, R, items, q_glob, sh, n_alone: int = 4) -> dict:
+    """A query's item scores bitwise the same whatever batch its items ride
+    in: from ``items`` (a big batch's tables of one shard), from the rows of
+    16 of its queries — the first that probes the heaviest tile, and the
+    next ones — and from tables that hold each of ``n_alone`` of them
+    alone.  The plane's "alone = in a batch" checks rest on this."""
+    dev = q_glob.device
+    iq, it = np.asarray(items[0]), np.asarray(items[1])
+    full = R.ragged_score(*items, q_glob, sh.codes, sh.a, sh.b, sh.h)
+    qs = np.unique(iq)
+    first = int(np.searchsorted(qs, iq[it == np.bincount(it).argmax()][0]))
+    batch16 = qs[max(0, min(first, len(qs) - 16)):][:16]
+
+    def same(sel) -> bool:
+        keep = np.isin(iq, sel)
+        sub = (np.searchsorted(sel, iq[keep]).astype(np.int32),
+               *(np.asarray(x)[keep] for x in items[1:]))
+        got = R.ragged_score(*sub, q_glob[torch.from_numpy(sel).to(dev)].contiguous(), sh.codes,
+                             sh.a, sh.b, sh.h)
+        return torch.equal(got, full[torch.from_numpy(np.flatnonzero(keep)).to(dev)])
+
+    return {"queries_of_batch": len(qs), "batch16": same(batch16),
+            "alone": [same(batch16[i:i + 1]) for i in range(min(n_alone, len(batch16)))]}
 
 
 def phase_kernels(torch, K, R) -> dict:
@@ -473,7 +512,7 @@ def phase_kernels(torch, K, R) -> dict:
     # ragged_score: seeded ragged plans over random cluster sizes (some 0),
     # M = 1 / Q = 1, a pad item, and an item on the last tile of the codes
     rng = np.random.default_rng(SEED)
-    for d in (128, 512, 100):
+    for d in RAGGED_WIDTHS:
         items, q_glob, codes, a, b, h = ragged_plan(torch, R, rng, d, dev)
         errs["ragged_score"] = max(errs["ragged_score"],
                                    ragged_check(torch, R, items, q_glob, codes, a, b, h))
@@ -488,7 +527,19 @@ def phase_kernels(torch, K, R) -> dict:
                                        ragged_check(torch, R, one, q1, codes, a, b, h))
         require(bool((R.ragged_score(*one, q1, codes, a, b, h) >= float(R.PAD_EST_VALID)).all()),
                 "a pad row scored below PAD_EST_VALID")
-        cases += 3
+        # heavy tiles: every tile of the largest cluster named by more than
+        # four chunks of queries, so a block loops over chunks on one tile
+        items, q_glob, codes, a, b, h = ragged_plan(torch, R, rng, d, dev,
+                                                    nq=4 * RAGGED_CHUNK + 5, heavy=True)
+        require(np.bincount(items[1]).max() >= 4 * RAGGED_CHUNK, "no heavy tile in the plan")
+        errs["ragged_score"] = max(errs["ragged_score"],
+                                   ragged_check(torch, R, items, q_glob, codes, a, b, h))
+        cases += 4
+    # a tile of 64 rows: the kernel's second band of 64 rows holds none
+    items, q_glob, codes, a, b, h = ragged_plan(torch, R, rng, 128, dev, tile=64, heavy=True)
+    errs["ragged_score"] = max(errs["ragged_score"],
+                               ragged_check(torch, R, items, q_glob, codes, a, b, h, tile=64))
+    cases += 1
     emit("kernels", seconds=time.perf_counter() - t0, cases=cases, max_abs_err=errs,
          timings=rec, batch_tiles=tiles,
          library_calls={k: v[2] for k, v in KERNELS.items()})
@@ -932,17 +983,39 @@ def phase_plane(torch, K, R) -> dict:
                                                       sh.b, sh.h))
             ragged_items += len(items[0])
         sh, q_glob, items = max(shard_tables(N_QUERIES), key=lambda t: len(t[2][0]))
+        ragged_err = max(ragged_err, ragged_check(torch, R, items, q_glob, sh.codes, sh.a, sh.b,
+                                                  sh.h))
+        invariance = ragged_invariance(torch, R, items, q_glob, sh)
+        require(invariance["batch16"] and all(invariance["alone"]),
+                f"ragged_score scores depend on the batch: {invariance}")
         t_items = [torch.from_numpy(np.asarray(v)).to(dev) for v in items]
+        n_tiles = len(sh.codes) // sh.tile
+        # the grouping adds no sync between host and device: the debug mode
+        # raises on any
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            R.group_items_by_tile(t_items[1], n_tiles)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         b_ms, b_by, b_work = ragged_bound(items, q_glob, sh.codes)
         tiles_view = sh.codes.view(-1, 128, PLANE_DIM)
+
+        def score():
+            return R.ragged_score(*items, q_glob, sh.codes, sh.a, sh.b, sh.h)
+
         ragged_timing = {
-            "ms": time_ms(torch, lambda: R.ragged_score(*items, q_glob, sh.codes, sh.a, sh.b,
-                                                        sh.h), 20),
+            "ms": time_ms(torch, score, 20),
+            "device_ms": device_ms_per_launch(torch, score, 20, "ragged_score_kernel"),
+            "grouping_ms": time_ms(torch, lambda: R.group_items_by_tile(t_items[1], n_tiles), 20),
+            "grouping_device_ms": device_ms_per_launch(
+                torch, lambda: R.group_items_by_tile(t_items[1], n_tiles), 20, ""),
             "plain_ms": time_ms(torch, lambda: R.ragged_score_torch(
                 *t_items, q_glob, sh.codes, sh.a, sh.b, sh.h), 5),
             "library_ms": time_ms(torch, lambda: torch.bmm(
                 tiles_view[t_items[1].long()], q_glob[t_items[0].long(), :, None]), 5),
             "bound_ms": b_ms, "bound_by": b_by, "shape": b_work,
+            "batch_invariance": invariance,
         }
         del t_items, tiles_view, plane
 

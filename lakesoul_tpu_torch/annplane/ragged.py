@@ -17,8 +17,12 @@ where ``codes_f``/``a``/``b``/``h`` are per-row constants
 tensors on a CUDA device, which replaces ``ragged_score_pallas`` →
 ``_ragged_score_kernel``, and takes its plain version
 :func:`ragged_score_torch` (the gather form of the reference's
-``ragged_score_jnp``) only for tensors on the CPU.  The reference's pow2
-padding of M and Q bounded TPU compiles and is dropped.
+``ragged_score_jnp``) only for tensors on the CPU.  On the card the items
+are first grouped by tile (:func:`group_items_by_tile`, a few torch ops on
+the device), so the kernel stages each probed tile once for every query
+that probes it, as the reference's host path ``ragged_topk_host`` groups
+its products by cluster.  The reference's pow2 padding of M and Q bounded
+TPU compiles and is dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from lakesoul_tpu_torch import _build
 
 TILE = 128  # rows per work item
+MAX_KERNEL_TILE = 128  # the CUDA kernel's largest tile (kMaxTile in csrc/ragged_score.cu)
 # pad rows carry this additive constant: estimated distances become
 # huge-but-finite (inf would poison a*g arithmetic), and the top-k treats
 # anything at or above PAD_EST_VALID as a hole
@@ -84,7 +89,24 @@ def plan_items(pairs_q, pairs_c, csq, csum, tile_start, tile_count):
 @functools.cache
 def _launcher():
     return _build.entry(_build.load("ragged_score"), "ls_ragged_score",
-                        [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+                        [ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 3)
+
+
+def group_items_by_tile(item_tile: torch.Tensor, n_tiles: int):
+    """Tile-major view of the item tables, on ``item_tile``'s device, with
+    no copy between host and device and no sync.  Returns
+
+    * ``order`` [M] int64 — item indices tile by tile, ascending within a
+      tile (a stable sort of ``item_tile``);
+    * ``tile_ptr`` [n_tiles + 1] int32 — tile t's items are
+      ``order[tile_ptr[t]:tile_ptr[t + 1]]``;
+    * ``walk`` [n_tiles] int64 — the tiles by item count, largest first,
+      ties by tile index: the order the kernel's blocks take them in."""
+    keys, order = torch.sort(item_tile, stable=True)
+    bounds = torch.arange(n_tiles + 1, dtype=keys.dtype, device=keys.device)
+    tile_ptr = torch.searchsorted(keys, bounds, out_int32=True)
+    walk = torch.argsort(tile_ptr[1:] - tile_ptr[:-1], descending=True, stable=True)
+    return order, tile_ptr, walk
 
 
 def ragged_score_torch(item_q: torch.Tensor, item_tile: torch.Tensor, csq: torch.Tensor,
@@ -120,6 +142,9 @@ def _check_score_inputs(item_q, item_tile, csq, csum, q_glob, codes, a, b, h, ti
         raise ValueError(f"item_tile out of range [0, {r // tile})")
     if m and not (0 <= item_q.min() and item_q.max() < q_glob.shape[0]):
         raise ValueError(f"item_q out of range [0, {q_glob.shape[0]})")
+    if dev.type == "cuda" and not (tile <= MAX_KERNEL_TILE and m < 2**31):
+        raise ValueError(f"the CUDA kernel takes tiles of at most {MAX_KERNEL_TILE} rows and"
+                         f" fewer than 2^31 items, got tile {tile} and {m} items")
 
 
 def ragged_score(item_q, item_tile, csq, csum, q_glob: torch.Tensor, codes: torch.Tensor,
@@ -130,7 +155,9 @@ def ragged_score(item_q, item_tile, csq, csum, q_glob: torch.Tensor, codes: torc
     ``item_q``/``item_tile`` (int) and ``csq``/``csum`` (f32) are the host
     item tables of :func:`plan_items`, [M] each; they are checked against
     ``q_glob`` [Q, d] and ``codes`` [R, d] before they are copied to the
-    device.  ``a``/``b``/``h`` are [R] f32."""
+    device.  ``a``/``b``/``h`` are [R] f32.  On the card the tables are
+    grouped by tile there (:func:`group_items_by_tile`) and one kernel
+    launch scores every item."""
     item_q = np.asarray(item_q, np.int32)
     item_tile = np.asarray(item_tile, np.int32)
     csq = np.asarray(csq, np.float32)
@@ -145,9 +172,12 @@ def ragged_score(item_q, item_tile, csq, csum, q_glob: torch.Tensor, codes: torc
     m = len(item_q)
     out = torch.empty((m, tile), dtype=torch.float32, device=dev)
     if m:
-        _launcher()(dev, ints[0].data_ptr(), ints[1].data_ptr(), floats[0].data_ptr(),
-                    floats[1].data_ptr(), q_glob.data_ptr(), codes.data_ptr(), a.data_ptr(),
-                    b.data_ptr(), h.data_ptr(), out.data_ptr(), m, codes.shape[1], tile)
+        n_tiles = codes.shape[0] // tile
+        order, tile_ptr, walk = group_items_by_tile(ints[1], n_tiles)
+        _launcher()(dev, ints[0].data_ptr(), floats[0].data_ptr(), floats[1].data_ptr(),
+                    order.data_ptr(), tile_ptr.data_ptr(), walk.data_ptr(), q_glob.data_ptr(),
+                    codes.data_ptr(), a.data_ptr(), b.data_ptr(), h.data_ptr(), out.data_ptr(),
+                    m, n_tiles, codes.shape[1], tile)
         ragged_score.launches += 1
     return out
 
