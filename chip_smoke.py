@@ -18,13 +18,18 @@ Each phase prints one JSON line with its own timing:
              the rtol is of the magnitude of the terms an estimate sums,
              see ``estimate_check`` and ``ragged_check``); requires a
              query's values from the batch kernel to be bitwise the same
-             whatever the batch and the query tile; holds ``ragged_score``
+             whatever the batch and the query tile; holds ``packed_dot`` in
+             both modes (product, and ``packed_estimate`` with unprobed
+             values exactly +inf) at every copy width, codes bases that
+             are not 16-byte aligned included; holds ``ragged_score``
              on ragged plans at d 128, 512, 100 and 130, with tiles that
              more than four chunks of queries name, and at a 64-row tile;
              and times kernel, plain
              version, a PyTorch yardstick and the card's bound at the shapes
-             the paths give them (``ragged_score`` is timed in the plane
-             phase, on the plane's own item tables; the batch kernel's
+             the paths give them (``packed_dot`` and ``packed_scan`` are
+             timed in the slice phase on the path's own inputs, and
+             ``ragged_score`` in the plane phase on the plane's own item
+             tables, each after its path's timed run; the batch kernel's
              record is its estimate mode, which the path runs, with the
              product-only mode beside it as ``product_*``).
 4. slice   — builds a 1,000,000 x 512 index (nlist 1024, 1-bit, fht,
@@ -32,9 +37,13 @@ Each phase prints one JSON line with its own timing:
              gaussians, then batch_search, single search, per-cluster
              packed scans and an AnnEndpoint under 16 client threads;
              recall@10 against the exact ``bruteforce_topk`` oracle on the
-             card; the kernel path held against the plain path on the CPU;
-             the fused estimate held on the path's own tables; no [N, Q]
-             elementwise pass left in the 256-query batch's profile.
+             card; the kernel path held against the plain path on the CPU,
+             for the batch and for the 16 resident single searches; both
+             fused estimates held on the path's own tables; ``packed_dot``
+             run in its product mode by the 4 non-resident searches and in
+             its estimate mode by the 16 resident ones; no [N, Q]
+             elementwise pass left in the 256-query batch's profile; one
+             resident single search's profile on a line of its own.
 5. plane   — builds a 10,000,000 x 128 1-bit plane (nlist 512 a shard, a
              768 MiB shard budget: 14 shards) with ``ShardedAnnBuilder`` from
              a seeded mixture of 4096 centres (the repo's ANN scale leg,
@@ -96,17 +105,23 @@ PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 BATCH_CASES = (1, 8, 13, 16, 17, 32, 33, 256)  # packed_dot_batch's nq: every tile, full and ragged
 PROBE_SHARE = 0.25  # share of (cluster, query) pairs probed in the estimate checks' tables
 PATH_PROBE_SHARE = 32 / NLIST  # the slice's nprobe / nlist: the estimate mode is timed at it
+# packed_dot's (d, row offset) cases: 16-byte words, 4-byte words (d8 % 16 != 0
+# or a base 4 bytes off), single bytes (d8 = 13 at an odd offset)
+SINGLE_CASES = ((512, 0), (100, 0), (416, 0), (512, 4), (100, 13))
 EST_FLOPS = 10  # f32 operations of the fused estimator per probed (query, row)
 TILE_SWEEP = (8, 16, 32, 256)  # nq at which every query tile is timed
 RAGGED_CHUNK = 32  # queries a chunk in csrc/ragged_score.cu: a heavy tile loops over several
 RAGGED_WIDTHS = (128, 512, 100, 130)  # d of the ragged checks: one slab, four; 130: 4-byte copies
 # timings some kernels add to their record: the batch kernel's probed share,
 # f32 bound and product-only mode beside its estimate mode (the mode the
-# path runs), packed_scan's device-only time
+# path runs), packed_scan's device-only time, packed_dot's estimate mode
+# beside its product mode (the path runs both)
 EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", "product_ms",
                  "product_plain_ms", "product_library_ms", "product_bound_ms", "product_bound_by",
                  "product_tensor_core_flop", "product_bound_ms_f32_cuda_cores", "device_ms",
-                 "library_device_ms", "grouping_ms", "grouping_device_ms")
+                 "library_device_ms", "grouping_ms", "grouping_device_ms", "estimate_ms",
+                 "estimate_device_ms", "estimate_plain_ms", "estimate_bound_ms",
+                 "estimate_bound_by", "estimate_probed_share")
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -114,7 +129,8 @@ KERNELS = {
                          "none for the estimate mode; torch.matmul over pre-unpacked f32 bits "
                          "beside the product mode (product_library_ms)"),
     "packed_dot": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:147",
-                   "torch.matmul over pre-unpacked f32 bits"),
+                   "torch.matmul over pre-unpacked f32 bits beside the product mode; none for "
+                   "the estimate mode"),
     "packed_scan": ("lakesoul_tpu_torch/csrc/packed_dot.cu", "lakesoul_tpu/vector/kernels.py:40",
                     "torch.mv over pre-unpacked f32 bits"),
     "bruteforce_distances": ("lakesoul_tpu_torch/csrc/bruteforce.cu",
@@ -208,27 +224,35 @@ def first_queries(tables, nq: int):
 
 
 def estimate_check(torch, K, codes, q, tables, d: int) -> float:
-    """``packed_estimate_batch`` against its plain version on the same
-    inputs.  Unprobed values must be +inf in both.  Each other estimate
-    norm² + csq + 2·norm·dot/factor sums terms that cancel, dot itself a sum
-    over bits, so the float32 error of two summation orders scales with the
-    terms: |kernel - plain| <= ATOL + RTOL·(norm² + |csq| + 2·norm/|factor|
-    · (2·|cdc| + 2·bits·|q| + |csum|)/√d)."""
+    """``packed_estimate_batch`` (q [nq, d], tables [nlist, nq]; out
+    [nq, N]) or ``packed_estimate`` (q [d], tables [nlist]; out [N]) against
+    its plain version on the same inputs.  Unprobed values must be +inf in
+    both.  Each other estimate norm² + csq + 2·norm·dot/factor sums terms
+    that cancel, dot itself a sum over bits, so the float32 error of two
+    summation orders scales with the terms: |kernel - plain| <= ATOL +
+    RTOL·(norm² + |csq| + 2·norm/|factor| · (2·|cdc| + 2·bits·|q| +
+    |csum|)/√d)."""
     norms, factors, cdc, cluster, probe, csq, csum = tables
-    got = K.packed_estimate_batch(codes, q, *tables, d=d)
-    want = K.packed_estimate_batch_torch(codes, q, *tables, d=d)
+    batch = q.ndim == 2
+    kernel, plain = ((K.packed_estimate_batch, K.packed_estimate_batch_torch) if batch
+                     else (K.packed_estimate, K.packed_estimate_torch))
+
+    def per_row(t):  # a (cluster[, query]) table at each row, in the output's layout
+        return t[cluster].T if batch else t[cluster]
+
+    got = kernel(codes, q, *tables, d=d)
+    want = plain(codes, q, *tables, d=d)
     torch.cuda.synchronize()
     held = torch.isfinite(want)
     require(torch.equal(got[~held], want[~held]) and bool((want[~held] > 0).all()),
             "the estimate mode's unprobed values are not all +inf")
     del want
-    mag = K.packed_dot_batch_torch(codes, q.abs()).T  # [nq, N]: bits·|q|
-    dot_mag = (2.0 * cdc.abs()[None, :] + 2.0 * mag + csum.abs()[cluster].T) / d**0.5
+    mag = K.packed_dot_batch_torch(codes, q.abs()).T if batch else K.packed_dot_torch(codes, q.abs())
+    dot_mag = (2.0 * cdc.abs() + 2.0 * mag + per_row(csum.abs())) / d**0.5
     del mag
-    scale = (norms * norms)[None, :] + csq.abs()[cluster].T \
-        + (2.0 * norms / factors.abs())[None, :] * dot_mag
+    scale = norms * norms + per_row(csq.abs()) + 2.0 * norms / factors.abs() * dot_mag
     del dot_mag
-    want = K.packed_estimate_batch_torch(codes, q, *tables, d=d)
+    want = plain(codes, q, *tables, d=d)
     return max_err(torch, got[held], want[held], scale[held])
 
 
@@ -368,6 +392,79 @@ def ragged_invariance(torch, R, items, q_glob, sh, n_alone: int = 4) -> dict:
             "alone": [same(batch16[i:i + 1]) for i in range(min(n_alone, len(batch16)))]}
 
 
+def single_tables(torch, g, n: int, share: float):
+    """``estimate_tables`` for one query: the estimate mode's [nlist] tables."""
+    return tuple(t[:, 0].contiguous() if t.ndim == 2 else t
+                 for t in estimate_tables(torch, g, n, 1, NLIST, share))
+
+
+def single_bound(n: int, d8: int, d: int, share: float | None = None) -> tuple[float, str]:
+    """``packed_dot``'s bound.  Product mode: the codes and the query read
+    once, [N] written, 2·d operations a row.  Estimate mode (``share``: of
+    the rows whose cluster is probed): every cluster id, the [nlist] tables,
+    and only for probed rows their codes and three floats and 2·d +
+    EST_FLOPS operations; [N] written."""
+    if share is None:
+        return bound(n * d8 + d * 4 + n * 4, 2.0 * n * d)
+    n_bytes = 8 * n + NLIST * (1 + 4 + 4) + share * n * (d8 + 12) + 4 * n + d * 4
+    return bound(n_bytes, share * n * (2.0 * d + EST_FLOPS))
+
+
+def single_query_checks(torch, K, dev) -> tuple[float, int]:
+    """``packed_dot`` in both modes against its plain versions: every copy
+    width (SINGLE_CASES), the estimate mode at PROBE_SHARE and at the path's
+    share.  Returns (max abs err, cases)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    err, cases = 0.0, 0
+    for n in (1_048_576, 1000):
+        for d, offset in SINGLE_CASES:
+            d8 = (d + 7) // 8
+            flat = torch.randint(0, 256, (n * d8 + offset,), dtype=torch.uint8, device=dev,
+                                 generator=g)
+            codes = flat[offset:].view(n, d8)  # base `offset` bytes into the allocation
+            q = torch.randn(d, device=dev, generator=g) / d**0.5
+            err = max(err, max_err(torch, K.packed_dot(codes, q), K.packed_dot_torch(codes, q)))
+            for share in (PROBE_SHARE, PATH_PROBE_SHARE):
+                tables = single_tables(torch, g, n, share)
+                err = max(err, estimate_check(torch, K, codes, q, tables, d))
+            cases += 3
+            del flat, codes, tables
+    return err, cases
+
+
+def single_query_timing(torch, K, codes, q, tables, d: int) -> dict:
+    """``packed_dot``'s record: both modes timed on a resident single
+    search's own inputs (the bundle's codes, the rotated query, the path's
+    per-cluster tables), after the main path, so no profiler session runs
+    before the path's own timings."""
+    n, d8 = codes.shape
+    share = probed_share(torch, tables[3], tables[4][:, None])
+    bits = K.unpack_bits(codes, q.shape[0])
+    b_ms, b_by = single_bound(n, d8, d)
+    e_ms, e_by = single_bound(n, d8, d, share)
+
+    def product():
+        return K.packed_dot(codes, q)
+
+    def estimate():
+        return K.packed_estimate(codes, q, *tables, d=d)
+
+    rec = {
+        "ms": time_ms(torch, product, 200),
+        "device_ms": device_ms_per_launch(torch, product, 200, "packed_dot_kernel"),
+        "plain_ms": time_ms(torch, lambda: K.packed_dot_torch(codes, q), 20),
+        "library_ms": time_ms(torch, lambda: torch.matmul(bits, q), 100),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d8, d],
+        "estimate_ms": time_ms(torch, estimate, 200),
+        "estimate_device_ms": device_ms_per_launch(torch, estimate, 200, "packed_dot_kernel"),
+        "estimate_plain_ms": time_ms(
+            torch, lambda: K.packed_estimate_torch(codes, q, *tables, d=d), 20),
+        "estimate_bound_ms": e_ms, "estimate_bound_by": e_by, "estimate_probed_share": share,
+    }
+    del bits
+    return rec
+
+
 def phase_kernels(torch, K, R) -> dict:
     """Each kernel against its plain version; timings at the serving shapes."""
     t0 = time.perf_counter()
@@ -388,10 +485,6 @@ def phase_kernels(torch, K, R) -> dict:
                 e = max(e, estimate_check(torch, K, codes, q, first_queries(tables, nq), d))
                 errs["packed_dot_batch"] = max(errs["packed_dot_batch"], e)
                 cases += 2
-            q1 = torch.randn(d, device=dev, generator=g) / d**0.5
-            e = max_err(torch, K.packed_dot(codes, q1), K.packed_dot_torch(codes, q1))
-            errs["packed_dot"] = max(errs["packed_dot"], e)
-            cases += 1
             del tables
 
     # timings at the shapes the serving path gives the kernels: the resident
@@ -443,13 +536,6 @@ def phase_kernels(torch, K, R) -> dict:
 
     rec = {"packed_dot_batch": {**batch_timing(256), "endpoint_nq16": batch_timing(16),
                                 "tile_invariance": invariance}}
-    b_ms, b_by = bound(n * d8 + d * 4 + n * 4, 2.0 * n * d)
-    rec["packed_dot"] = {
-        "ms": time_ms(torch, lambda: K.packed_dot(codes, q[0]), 200),
-        "plain_ms": time_ms(torch, lambda: K.packed_dot_torch(codes, q[0]), 20),
-        "library_ms": time_ms(torch, lambda: torch.matmul(bits, q[0]), 100),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d8, d],
-    }
     del bits
 
     # every query tile of the batch kernel at the batch sizes around the
@@ -469,6 +555,9 @@ def phase_kernels(torch, K, R) -> dict:
         tiles[f"nq{nq}"] = row
         del want
     del codes, tables
+
+    errs["packed_dot"], n_single = single_query_checks(torch, K, dev)
+    cases += n_single
 
     # packed_scan: one cluster's estimate, at the cluster sizes of the slice
     # and at a whole 1M-row code set
@@ -625,6 +714,24 @@ def same_topk(ids_a, d_a, ids_b, d_b) -> bool:
     return True
 
 
+def caught_inputs(K, name: str, drive) -> tuple:
+    """The (args, kwargs) of the one call that ``drive()`` makes to the
+    kernel wrapper ``K.<name>``, which still runs."""
+    caught, real = [], getattr(K, name)
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(K, name, catch)
+    try:
+        drive()
+    finally:
+        setattr(K, name, real)
+    (call,) = caught
+    return call
+
+
 def cluster_scans(torch, K, index, queries, nprobe: int) -> list:
     """Each query's probed clusters scanned one by one, as the reference's
     per-cluster entry point ``packed_scan`` does: the cluster's codes
@@ -665,9 +772,10 @@ def phase_slice(torch, K, R) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     require(index.num_vectors == N_VECTORS, "index lost vectors")
-    for q in qs_np[:4]:  # the non-resident single-query path
+    for q in qs_np[:4]:  # the non-resident single-query path: packed_dot's product mode
         got, _ = index.search(q, params)
         require(len(got) == 10, "non-resident search returned fewer than 10")
+    product_launches = K.packed_dot.launches
     index.enable_device_cache()
     index.batch_search(qs_np[:256], params)  # warm-up: concatenates the resident bundle
     t = time.perf_counter()
@@ -676,12 +784,14 @@ def phase_slice(torch, K, R) -> dict:
     t = time.perf_counter()
     f_ids, f_d = index.batch_search(qs_np[:N_ORACLE], full)
     full_s = time.perf_counter() - t
-    single_ms = []
-    for q in qs_np[:16]:
+    single_ms, singles = [], []
+    before = K.packed_dot.launches
+    for q in qs_np[:16]:  # the resident single-query path: packed_dot's estimate mode
         t = time.perf_counter()
-        s_ids, s_d = index.search(q, params)
+        singles.append(index.search(q, params))
         single_ms.append((time.perf_counter() - t) * 1e3)
-        require(len(s_ids) == 10, "resident search returned fewer than 10")
+        require(len(singles[-1][0]) == 10, "resident search returned fewer than 10")
+    estimate_launches = K.packed_dot.launches - before
     t = time.perf_counter()
     scans = cluster_scans(torch, K, index, queries[:N_SCAN_QUERIES], params.nprobe)
     torch.cuda.synchronize()
@@ -715,6 +825,9 @@ def phase_slice(torch, K, R) -> dict:
     n_pad = len(bundle["codes"])
     on_path = ("packed_dot", "packed_dot_batch", "packed_scan", "bruteforce_distances")
     require(all(launches[k] for k in on_path), f"a kernel never ran on the main path: {launches}")
+    packed_dot_modes = {"product": product_launches, "estimate": estimate_launches}
+    require(packed_dot_modes == {"product": 4, "estimate": 16},
+            f"packed_dot's modes on the path: {packed_dot_modes}, not 4 product and 16 estimate")
     for i, (ids_i, d_i) in served.items():
         require(same_topk(b_ids[i], b_d[i], ids_i, d_i), f"endpoint result {i} != batch_search")
     require(all(len(r) == 10 and np.isfinite(d).all() for r, d in zip(b_ids, b_d)),
@@ -726,6 +839,7 @@ def phase_slice(torch, K, R) -> dict:
     batch_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
     prof_batch = profile(torch, lambda: index.batch_search(qs_np[:256], params))
     prof_single = profile(torch, lambda: index.search(qs_np[0], params))
+    emit("profile_single", **prof_single)
     # one pass over the [N, Q] estimates at the memory's rate takes at least
     # this long; no kernel that long may remain but the fused kernel and the
     # top-k's own (radix select, sort)
@@ -741,20 +855,11 @@ def phase_slice(torch, K, R) -> dict:
     require(recall_full >= RECALL_FLOOR, f"recall@10 at nprobe=nlist {recall_full} < {RECALL_FLOOR}")
 
     # each kernel on the main path's own inputs against its plain version;
-    # the estimate mode's inputs are caught from one 256-query batch_search
-    caught = []
+    # the estimate modes' inputs are caught from one 256-query batch_search
+    # and from one resident single search
+    args, kw = caught_inputs(K, "packed_estimate_batch",
+                             lambda: index.batch_search(qs_np[:256], params))
     fused = K.packed_estimate_batch
-
-    def catch(*args, **kw):
-        caught.append((args, kw))
-        return fused(*args, **kw)
-
-    K.packed_estimate_batch = catch
-    try:
-        index.batch_search(qs_np[:256], params)
-    finally:
-        K.packed_estimate_batch = fused
-    (args, kw), = caught
     codes_b, q_b, *path_tables = args
     path_est_err = estimate_check(torch, K, codes_b, q_b, path_tables, kw["d"])
     path_share = probed_share(torch, path_tables[3], path_tables[4])
@@ -762,7 +867,11 @@ def phase_slice(torch, K, R) -> dict:
         fused(*args, **kw)[:16],
         fused(codes_b, q_b[:16].contiguous(), *first_queries(path_tables, 16), **kw))
     require(path_nq16, "the path's 16-query estimates differ from its 256-query ones")
-    del caught, args, codes_b, q_b, path_tables
+    del args, codes_b, q_b, path_tables
+    args, kw = caught_inputs(K, "packed_estimate", lambda: index.search(qs_np[0], params))
+    path_single_err = estimate_check(torch, K, args[0], args[1], args[2:], kw["d"])
+    single_timing = single_query_timing(torch, K, args[0], args[1], args[2:], kw["d"])
+    del args
     q_glob = index.quantizer.rotate(queries[:256]).contiguous()
     q_ep = q_glob[:16].contiguous()  # the endpoint's padded batch
     errs = {
@@ -773,8 +882,9 @@ def phase_slice(torch, K, R) -> dict:
                     K.packed_dot_batch_torch(bundle["codes"], q_ep)),
             path_est_err,
         ),
-        "packed_dot": max_err(torch, K.packed_dot(bundle["codes"], q_glob[0]),
-                              K.packed_dot_torch(bundle["codes"], q_glob[0])),
+        "packed_dot": max(max_err(torch, K.packed_dot(bundle["codes"], q_glob[0]),
+                                  K.packed_dot_torch(bundle["codes"], q_glob[0])),
+                          path_single_err),
         "packed_scan": max(max_err(torch, est, K.packed_scan_torch(c, nm, fc, r, d=DIM))
                            for c, nm, fc, r, est in scans),
         "bruteforce_distances": max_err(torch, K.bruteforce_distances(x, queries[0]),
@@ -803,8 +913,12 @@ def phase_slice(torch, K, R) -> dict:
     c_ids, c_d = cpu_index.batch_search(qs_np[:N_HOLD], params)
     g_ids, g_d = index.batch_search(qs_np[:N_HOLD], params)
     held = sum(same_topk(c_ids[i], c_d[i], g_ids[i], g_d[i]) for i in range(N_HOLD))
+    single_held = sum(same_topk(*cpu_index.search(q, params), *singles[i])
+                      for i, q in enumerate(qs_np[:len(singles)]))
     hold_s = time.perf_counter() - t
     require(held == N_HOLD, f"kernel path != plain path on {N_HOLD - held} of {N_HOLD} queries")
+    require(single_held == len(singles),
+            f"resident single search != plain path on {len(singles) - single_held} queries")
 
     emit(
         "slice", seconds=time.perf_counter() - t0, vectors=N_VECTORS, dim=DIM, nlist=NLIST,
@@ -818,11 +932,14 @@ def phase_slice(torch, K, R) -> dict:
         cluster_scans=launches["packed_scan"], cluster_scan_s=scan_s, oracle_s=oracle_s,
         batch_peak_device_gb=batch_peak_gb, nq_pass_floor_ms=nq_pass_ms,
         path_estimates_nq16_of_256_bitwise=path_nq16, path_probed_share_256=path_share,
-        launches=launches, main_path_max_abs_err=errs, plain_path_held=f"{held}/{N_HOLD}",
-        plain_path_s=hold_s, profile_batch_256=prof_batch, profile_single=prof_single,
-        packed_scan_timing=scan_timing,
+        launches=launches, packed_dot_modes=packed_dot_modes, main_path_max_abs_err=errs,
+        plain_path_held=f"{held}/{N_HOLD}",
+        single_plain_path_held=f"{single_held}/{len(singles)}",
+        plain_path_s=hold_s,
+        profile_batch_256=prof_batch, packed_scan_timing=scan_timing,
     )
-    return {"launches": launches, "errs": errs, "packed_scan_timing": scan_timing}
+    return {"launches": launches, "errs": errs, "packed_scan_timing": scan_timing,
+            "packed_dot_timing": single_timing}
 
 
 def make_plane_data(torch, dev, n: int, n_q: int):
@@ -1099,7 +1216,7 @@ def main() -> int:
     pl = phase_plane(torch, K, R)
 
     timings = {**kernels["timings"], "packed_scan": sl["packed_scan_timing"],
-               "ragged_score": pl["ragged_timing"]}
+               "packed_dot": sl["packed_dot_timing"], "ragged_score": pl["ragged_timing"]}
     record = []
     for name, (source, replaces, library_call) in KERNELS.items():
         t = timings[name]

@@ -58,13 +58,41 @@
 //   and runs only where the row's cluster is probed for the query (a few
 //   per cent of the values at the slice's nprobe): the rest are +inf.
 //
-// ls_packed_dot replaces lakesoul_tpu/vector/kernels.py
-//   packed_dot_pallas -> _packed_dot_kernel.
-//   bits [N, 8*d8] x q[d] -> [N] f32.  At N = 1,048,576, d = 512 it moves
-//   71 MB (~21 us at 3.35 TB/s) for 5.4e8 FLOP: bound by bytes.  Design: the
-//   query sits in shared memory (2 KB at d = 512, dynamic size), one thread
-//   computes one row, reading its bytes 16 or 4 at a time where the row
-//   stride and base allow it.
+// ls_packed_dot and ls_packed_estimate are the two modes of one kernel,
+// which replaces lakesoul_tpu/vector/kernels.py
+//   packed_dot_pallas -> _packed_dot_kernel
+// and, in its second mode, also the jnp estimator and probe mask the
+// reference wraps around that call (_fused_search_resident, kernels.py:
+// 268-277), which the resident single query runs.
+//   Product mode: bits [N, 8*d8] x q[d] -> [N] f32.  At N = 1,048,576,
+//   d = 512 it moves 71 MB (~21 us at 3.35 TB/s) for 5.4e8 FLOP: bound by
+//   bytes.  A multiply-add a bit (shift, shift, and, fma) is ~2,000
+//   instructions a row, ~2e9 in all, ~70 us at the card's ~3e13 thread
+//   instructions a second: the old one-thread-a-row loop was bound by
+//   instructions, not bytes.  Design: nibble lookup tables.  For each 4
+//   dimensions 4k .. 4k+3 a 16-entry table T_k[v] holds the sum of the
+//   query over the bits of v (MSB first, as the packing: a byte's high
+//   nibble is table 2p, its low nibble 2p + 1); 2 * d8 tables, 8 KB at
+//   d = 512, built once a persistent block from the query copied to shared
+//   memory.  A row is then 2 * d8 lookups and adds (a byte permute, an
+//   address add, a shared load and an add each): ~4x fewer instructions,
+//   and the pace is set by shared loads, one warp-wide load a cycle an SM:
+//   1,048,576 x 128 lookups in ~18 us, under the bytes.  All lanes of a
+//   warp read the same table at once (one row a thread, the same loop), so
+//   a load touches 16 consecutive banks whatever the nibbles: no bank
+//   conflicts.  Code rows reach shared memory by coalesced copies
+//   (cp.async of 16 bytes, neighbouring threads on neighbouring words; 4 or
+//   1 bytes where base or stride is not 16-byte aligned), each row at an odd
+//   multiple of 16 bytes, so a thread's 16-byte reads of its row do not
+//   conflict either.
+//   Estimate mode: the same sum, then rabitq_estimate (shared with the
+//   batch kernel's epilogue) with the per-row norm, factor and code_dot_c
+//   and the row's cluster's csq and csum, +inf where the cluster is not
+//   probed.  A row whose cluster is not probed reads neither code bytes nor
+//   per-row floats, only its cluster id; rows are sorted by cluster, so most
+//   tiles are skipped whole.  Bound by bytes: 8 N of cluster ids, the
+//   probed share of N * (d8 + 12), 4 N of output (~15 MB, ~4.5 us, at the
+//   slice's 32 of 1024 clusters).
 //
 // ls_packed_scan replaces lakesoul_tpu/vector/kernels.py
 //   packed_scan_pallas -> _packed_scan_kernel.
@@ -98,8 +126,8 @@ constexpr int kChunk = 16;      // code bytes a row per staged chunk: 128 dims, 
 constexpr int kWarpRows = 64;   // code rows a warp owns: 8 n-tiles of 8
 constexpr int kNTiles = kWarpRows / 8;
 
-// The estimator's per-row and per-(cluster, query) tables; unused in
-// product mode.
+// The estimator's per-row and per-(cluster, query) tables, nq = 1 for
+// packed_dot's estimate mode; unused in product mode.
 struct EstimateArgs {
   const float* norms;
   const float* factors;
@@ -122,6 +150,18 @@ constexpr int kRowBytes = 8 + 3 * 4;  // int64 cluster id, three f32
 __host__ __device__ constexpr size_t batch_smem(int bm, int bn, int d8, bool estimate) {
   return static_cast<size_t>(3) * bm * (padded_dims(d8) + 8) * 2 + 2ull * bn * kChunk +
          (estimate ? 2ull * bn * kRowBytes : 0);
+}
+
+// The RaBitQ estimate in the global query frame, _estimate
+// (vector/kernels.py) operation for operation, in round-to-nearest
+// intrinsics that the compiler cannot contract to FMAs: one function for
+// the batch kernel's epilogue and packed_dot's estimate mode, so a query
+// gets the same rounding alone and in a batch.
+__device__ __forceinline__ float rabitq_estimate(float bq, float nrm, float fac, float cdc,
+                                                 float csq, float csum, float sqrt_d) {
+  const float dot = __fdiv_rn(__fsub_rn(__fmul_rn(2.f, __fsub_rn(cdc, bq)), csum), sqrt_d);
+  return __fadd_rn(__fadd_rn(__fmul_rn(nrm, nrm), csq),
+                   __fdiv_rn(__fmul_rn(__fmul_rn(2.f, nrm), dot), fac));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
@@ -334,18 +374,12 @@ packed_batch_kernel(const uint8_t* __restrict__ codes, const float* __restrict__
               float v[2];
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
-                // _estimate (vector/kernels.py), operation for operation,
-                // only where the cluster is probed: +inf elsewhere
+                // the estimate only where the cluster is probed: +inf elsewhere
                 const int64_t at = cl[e] * nq + qi;
                 v[e] = __int_as_float(0x7f800000);
-                if (__ldg(probe + at)) {
-                  const float bq = acc[i][j][hh * 2 + e];
-                  const float dot = __fdiv_rn(
-                      __fsub_rn(__fmul_rn(2.f, __fsub_rn(cdc[e], bq)), __ldg(csum + at)),
-                      est.sqrt_d);
-                  v[e] = __fadd_rn(__fadd_rn(__fmul_rn(nrm[e], nrm[e]), __ldg(csq + at)),
-                                   __fdiv_rn(__fmul_rn(__fmul_rn(2.f, nrm[e]), dot), fac[e]));
-                }
+                if (__ldg(probe + at))
+                  v[e] = rabitq_estimate(acc[i][j][hh * 2 + e], nrm[e], fac[e], cdc[e],
+                                         __ldg(csq + at), __ldg(csum + at), est.sqrt_d);
               }
               float* o = out + static_cast<int64_t>(qi) * n + r0;
               if ((n & 1) == 0 && r0 + 1 < n) {
@@ -420,7 +454,142 @@ cudaError_t launch_batch(const uint8_t* codes, const float* q, float* out, int64
 }
 
 // ---------------------------------------------------------------------------
-// packed_dot and packed_scan: CUDA-core row loops
+// packed_dot / packed_estimate: nibble lookup tables
+// ---------------------------------------------------------------------------
+
+constexpr int kLutMaxRows = 256;  // rows a tile at most: one a thread
+
+// 16-byte words of a row, rounded up; the tables cover them all (32 a word)
+__host__ __device__ constexpr int lut_words(int d8) { return (d8 + 15) / 16; }
+// a staged row's stride in shared memory: an odd number of 16-byte words,
+// so the 8 rows a quarter-warp reads with 16-byte loads fall in 8 bank groups
+__host__ __device__ constexpr int lut_row_stride(int d8) { return (lut_words(d8) | 1) * 16; }
+// shared memory of a block: the tables [32 * words][16] f32, the query
+// [128 * words] f32, the tile's rows and, in estimate mode, a probe flag a
+// row
+__host__ __device__ constexpr size_t lut_smem(int d8, int rows) {
+  return static_cast<size_t>(lut_words(d8)) * (32 * 16 + 128) * 4 +
+         static_cast<size_t>(rows) * (lut_row_stride(d8) + 1);
+}
+
+// The entry of table `t` at byte offset `off` (4 x the nibble)
+__device__ __forceinline__ float lut_at(const float* t, uint32_t off) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(t) + off);
+}
+
+// packed_dot in two modes.  A persistent block copies the query to shared
+// memory (zero past d) and builds from it the 2 * 16 * words nibble tables
+// once (T_k[v] = sum of q[4k + j] over the bits j of v, MSB first, j
+// ascending), then walks tiles of blockDim.x rows: it stages the tile's
+// rows in shared memory with coalesced copies of W bytes (16, 4 or 1, as
+// base and stride allow), and each thread sums its row's 2 * d8 lookups.
+// A warp's lanes look up the same table at once, so they read 16
+// consecutive banks whatever their nibbles.  ESTIMATE: a tile none of
+// whose rows' clusters is probed reads no code byte; in the others only
+// probed rows are staged and scored, the rest are +inf.
+template <int W, bool ESTIMATE>
+__global__ void __launch_bounds__(kLutMaxRows)
+packed_dot_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q,
+                  float* __restrict__ out, int64_t n, int d8, int d, EstimateArgs est) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int words = lut_words(d8), rs = lut_row_stride(d8);
+  const int rows_per_tile = blockDim.x, tid = threadIdx.x;
+  float* lut = reinterpret_cast<float*>(smem);                            // [32 * words][16]
+  float* q_s = lut + words * 32 * 16;                                     // [128 * words]
+  uint8_t* rows_s = reinterpret_cast<uint8_t*>(q_s + words * 128);        // [rows][rs]
+  uint8_t* flag_s = rows_s + static_cast<size_t>(rows_per_tile) * rs;     // [rows]
+
+  for (int k = tid; k < words * 128; k += rows_per_tile) q_s[k] = k < d ? q[k] : 0.f;
+  __syncthreads();
+  for (int e = tid; e < words * 32 * 16; e += rows_per_tile) {
+    const int k = e >> 4, v = e & 15;
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((v >> (3 - j)) & 1) t += q_s[4 * k + j];
+    lut[e] = t;
+  }
+  // (the first tile's barriers order these stores before any lookup)
+
+  const float inf = __int_as_float(0x7f800000);
+  const int64_t tiles = (n + rows_per_tile - 1) / rows_per_tile;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * rows_per_tile, row = row0 + tid;
+    const int rows = static_cast<int>(n - row0 < rows_per_tile ? n - row0 : rows_per_tile);
+    bool live = row < n;  // this thread's row is scored
+    int64_t cl = 0;
+    if constexpr (ESTIMATE) {
+      if (live) {
+        cl = est.cluster[row];
+        live = est.probe[cl] != 0;
+      }
+      flag_s[tid] = live;
+      if (!__syncthreads_or(live)) {  // no row of the tile probed
+        if (row < n) out[row] = inf;
+        continue;
+      }
+    }
+
+    // stage the rows (estimate mode: the probed ones), neighbouring threads
+    // on neighbouring bytes; bytes past d8 stay unset: they index the zero
+    // tables past 2 * d8
+    const uint8_t* src = codes + row0 * d8;
+    if constexpr (W == 16) {
+      for (int u = tid; u < rows * words; u += rows_per_tile) {
+        const int r = u / words, w = u - r * words;
+        if (!ESTIMATE || flag_s[r]) cp_async16(rows_s + r * rs + 16 * w, src + 16 * u, 16);
+      }
+    } else if constexpr (W == 4) {
+      const int per_row = d8 / 4;
+      for (int u = tid; u < rows * per_row; u += rows_per_tile) {
+        const int r = u / per_row, w = u - r * per_row;
+        if (!ESTIMATE || flag_s[r]) cp_async_elem<4>(rows_s + r * rs + 4 * w, src + 4 * u, 4);
+      }
+    } else {
+      for (int u = tid; u < rows * d8; u += rows_per_tile) {
+        const int r = u / d8, b = u - r * d8;
+        if (!ESTIMATE || flag_s[r]) rows_s[r * rs + b] = src[u];
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    if (live) {
+      // four sums: byte parity x nibble; bytes ascending in each
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint8_t* mine = rows_s + tid * rs;
+      for (int w = 0; w < words; ++w) {
+        const uint4 v = *reinterpret_cast<const uint4*>(mine + 16 * w);
+        const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+        const float* tw = lut + w * 32 * 16;  // the 32 tables of this word's 16 bytes
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t hi = (x[i] >> 2) & 0x3C3C3C3Cu;  // 4 x each byte's high nibble
+          const uint32_t lo = (x[i] << 2) & 0x3C3C3C3Cu;  // 4 x each byte's low nibble
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* tb = tw + 32 * (4 * i + j);  // byte 4i + j: tables 2b, 2b + 1
+            acc[2 * (j & 1)] += lut_at(tb, __byte_perm(hi, 0, 0x4440u | j));
+            acc[2 * (j & 1) + 1] += lut_at(tb + 16, __byte_perm(lo, 0, 0x4440u | j));
+          }
+        }
+      }
+      const float bq = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      if constexpr (ESTIMATE)
+        out[row] = rabitq_estimate(bq, est.norms[row], est.factors[row], est.cdc[row],
+                                   est.csq[cl], est.csum[cl], est.sqrt_d);
+      else
+        out[row] = bq;
+    } else if (ESTIMATE && row < n) {
+      out[row] = inf;
+    }
+    __syncthreads();  // the next tile restages the rows
+  }
+}
+
+// ---------------------------------------------------------------------------
+// packed_scan: CUDA-core row loop
 // ---------------------------------------------------------------------------
 
 // 1.0f where bit (7 - j) of `byte` is set, else 0.0f, without an
@@ -460,26 +629,6 @@ __device__ __forceinline__ float bytes_dot(const uint32_t (&words)[(W + 3) / 4],
     for (int j = 0; j < 8; ++j) acc = fmaf(bit_as_float(byte, j), qv[j], acc);
   }
   return acc;
-}
-
-// packed_dot: one thread per row; W = code bytes per load (1, 4 or 16)
-template <int W>
-__global__ void __launch_bounds__(256)
-packed_dot_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ q,
-                  float* __restrict__ out, int64_t n, int d8, int d) {
-  extern __shared__ __align__(16) float q_sm[];  // 8 * d8 floats, zero past d
-  for (int k = threadIdx.x; k < 8 * d8; k += blockDim.x) q_sm[k] = k < d ? q[k] : 0.f;
-  __syncthreads();
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const uint8_t* c = codes + row * d8;
-  float acc = 0.f;
-  for (int p = 0; p < d8; p += W) {
-    uint32_t words[(W + 3) / 4];
-    load_bytes<W>(c, p, words);
-    acc = bytes_dot<W>(words, q_sm + p * 8, acc);  // same address across the warp
-  }
-  out[row] = acc;
 }
 
 constexpr int kScanLanes = 4;  // lanes a row in packed_scan
@@ -544,16 +693,41 @@ packed_scan_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ 
   }
 }
 
-template <int W>
-cudaError_t launch_single(const uint8_t* codes, const float* q, float* out, int64_t n, int d8,
-                          int d, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(d8) * 8 * sizeof(float);
-  const cudaError_t err = allow_smem(packed_dot_kernel<W>, smem);
+// One resident wave of persistent blocks of 256 rows a tile, or of 128, 64
+// or 32 where a wide query's tables leave too little shared memory.
+template <int W, bool ESTIMATE>
+cudaError_t launch_lut(const uint8_t* codes, const float* q, float* out, int64_t n, int d8,
+                       int d, const EstimateArgs& est, cudaStream_t stream) {
+  int dev = 0, limit = 232448;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int rows = kLutMaxRows;
+  while (rows > 32 && lut_smem(d8, rows) > static_cast<size_t>(limit)) rows /= 2;
+  const size_t smem = lut_smem(d8, rows);
+  const auto kernel = packed_dot_kernel<W, ESTIMATE>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  packed_dot_kernel<W><<<blocks, threads, smem, stream>>>(codes, q, out, n, d8, d);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, rows, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  kernel<<<grid_for(n, rows, per_sm), rows, smem, stream>>>(codes, q, out, n, d8, d, est);
   return cudaGetLastError();
+}
+
+// W by what the codes' base and row stride allow
+template <bool ESTIMATE>
+cudaError_t launch_packed_dot(const void* codes, const void* q, void* out, int64_t n, int d8,
+                              int d, const EstimateArgs& est, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* qf = static_cast<const float*>(q);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto addr = reinterpret_cast<uintptr_t>(codes);
+  if (d8 % 16 == 0 && addr % 16 == 0) return launch_lut<16, ESTIMATE>(c, qf, o, n, d8, d, est, s);
+  if (d8 % 4 == 0 && addr % 4 == 0) return launch_lut<4, ESTIMATE>(c, qf, o, n, d8, d, est, s);
+  return launch_lut<1, ESTIMATE>(c, qf, o, n, d8, d, est, s);
 }
 
 template <int W>
@@ -581,15 +755,22 @@ extern "C" {
 // device; d <= 8 * d8.  Returns a cudaError_t (0 = launched).
 int ls_packed_dot(const void* codes, const void* q, void* out, int64_t n, int d8, int d,
                   void* stream) {
-  if (n <= 0) return 0;
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* qf = static_cast<const float*>(q);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto addr = reinterpret_cast<uintptr_t>(codes);
-  if (d8 % 16 == 0 && addr % 16 == 0) return launch_single<16>(c, qf, o, n, d8, d, s);
-  if (d8 % 4 == 0 && addr % 4 == 0) return launch_single<4>(c, qf, o, n, d8, d, s);
-  return launch_single<1>(c, qf, o, n, d8, d, s);
+  return launch_packed_dot<false>(codes, q, out, n, d8, d, EstimateArgs{}, stream);
+}
+
+// Estimate mode.  As ls_packed_dot, plus norms, factors, code_dot_c [n] f32
+// and cluster [n] int64 (each in [0, nlist)), probe [nlist] bool, csq and
+// csum [nlist] f32; out [n] f32, +inf where the row's cluster is not
+// probed.  sqrt_d is sqrt(d) rounded to f32.  Returns a cudaError_t.
+int ls_packed_estimate(const void* codes, const void* q, const void* norms, const void* factors,
+                       const void* cdc, const void* cluster, const void* probe, const void* csq,
+                       const void* csum, void* out, int64_t n, int d8, int d, float sqrt_d,
+                       void* stream) {
+  const EstimateArgs est{static_cast<const float*>(norms),  static_cast<const float*>(factors),
+                         static_cast<const float*>(cdc),    static_cast<const int64_t*>(cluster),
+                         static_cast<const uint8_t*>(probe), static_cast<const float*>(csq),
+                         static_cast<const float*>(csum),   sqrt_d};
+  return launch_packed_dot<true>(codes, q, out, n, d8, d, est, stream);
 }
 
 // Product mode.  codes [n, d8] uint8, q [nq, d] f32, out [n, nq] f32, all

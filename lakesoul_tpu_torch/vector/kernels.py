@@ -4,9 +4,13 @@
 Four kernels written in CUDA C++ for Hopper.  Three are packed 1-bit
 code × query products (``lakesoul_tpu_torch/csrc/packed_dot.cu``):
 
-- :func:`packed_dot` — bits [N, 8·d8] · q [d] → [N].  Replaces
-  ``packed_dot_pallas`` → ``_packed_dot_kernel``.  Bound by bytes: 71 MB at
-  N = 1,048,576, d = 512, ~21 µs at 3.35 TB/s.
+- :func:`packed_dot` — bits [N, 8·d8] · q [d] → [N], and
+  :func:`packed_estimate`, the same kernel with the estimator and the probe
+  mask fused, which the resident single query runs.  Replace
+  ``packed_dot_pallas`` → ``_packed_dot_kernel`` (and the jnp estimator
+  around it).  Nibble lookup tables in shared memory: a row is 2·d8 lookups.
+  Bound by bytes: 71 MB at N = 1,048,576, d = 512, ~21 µs at 3.35 TB/s; the
+  estimate mode reads code bytes only for rows whose cluster is probed.
 - :func:`packed_dot_batch` — bits · Qᵀ, Q [nq, d] → [N, nq], and
   :func:`packed_estimate_batch`, the same kernel with the estimator, the
   probe mask and the ``[Q, N]`` layout in its epilogue.  Replace
@@ -82,6 +86,7 @@ _PTR, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c
 # each C entry point's arguments before the stream
 _ENTRY_POINTS = {
     "ls_packed_dot": ("packed_dot", [_PTR, _PTR, _PTR, _I64, _I32, _I32]),
+    "ls_packed_estimate": ("packed_dot", [_PTR] * 10 + [_I64, _I32, _I32, _F32]),
     "ls_packed_dot_batch": ("packed_dot", [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I32]),
     "ls_packed_estimate_batch": ("packed_dot", [_PTR] * 10 + [_I64, _I32, _I32, _I32, _F32, _I32]),
     "ls_packed_scan": ("packed_dot", [_PTR] * 5 + [_I64, _I32, _I32, _F32]),
@@ -128,6 +133,38 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous on {dev}")
 
 
+def _check_estimate(codes, q_glob, norms, factors, code_dot_c, cluster_id, probe_mask, csq_c,
+                    csum_c, *, batch: bool = False) -> None:
+    """The inputs of an estimate mode: one query [d] with per-cluster
+    tables [nlist], or (``batch``) queries [nq, d] with tables [nlist, nq];
+    per-row vectors and cluster ids in [0, nlist) as for the product."""
+    _check(codes, q_glob, 1 + batch, norms=norms, factors=factors, code_dot_c=code_dot_c)
+    dev = codes.device
+    _check_tensor("cluster_id", cluster_id, torch.int64, (len(codes),), dev)
+    per_cluster = tuple(q_glob.shape[:-1])  # (nq,) for a batch, () for one query
+    nlist = probe_mask.shape[0] if probe_mask.ndim == 1 + batch else -1
+    for name, t, dtype in (("probe_mask", probe_mask, torch.bool), ("csq_c", csq_c, torch.float32),
+                           ("csum_c", csum_c, torch.float32)):
+        _check_tensor(name, t, dtype, (nlist, *per_cluster), dev)
+    _check_cluster_ids(cluster_id, nlist)
+
+
+def _check_cluster_ids(cluster_id: torch.Tensor, nlist: int) -> None:
+    """Every cluster id in [0, nlist): the kernels read the per-cluster
+    tables at them unchecked.  On the CPU a bad id raises at once; on the
+    card the check is a device-side assertion, as a torch gather's bounds
+    check is, so the host does not wait for the device."""
+    if not len(cluster_id):
+        return
+    lo, hi = torch.aminmax(cluster_id)
+    ok = (lo >= 0) & (hi < nlist)
+    if cluster_id.device.type == "cpu":
+        if not ok:
+            raise ValueError(f"cluster_id must lie in [0, {nlist}), got [{int(lo)}, {int(hi)}]")
+    else:
+        torch._assert_async(ok, f"cluster_id must lie in [0, {nlist})")
+
+
 def packed_dot_torch(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`packed_dot`: unpack the bits, then matvec."""
     return unpack_bits(codes, q.shape[0]) @ q
@@ -152,7 +189,47 @@ def packed_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-packed_dot.launches = 0
+packed_dot.launches = 0  # counts both modes: one TPU kernel's port
+
+
+def packed_estimate_torch(codes, q_glob, norms, factors, code_dot_c, cluster_id, probe_mask,
+                          csq_c, csum_c, *, d: int) -> torch.Tensor:
+    """Plain version of :func:`packed_estimate`: the product, the estimator
+    on the gathered (cluster) tables, then the mask."""
+    bq = packed_dot_torch(codes, q_glob)
+    est = _estimate(bq, norms, factors, code_dot_c, csq_c[cluster_id], csum_c[cluster_id], d)
+    return est.masked_fill(~probe_mask[cluster_id], math.inf)
+
+
+def packed_estimate(codes: torch.Tensor, q_glob: torch.Tensor, norms: torch.Tensor,
+                    factors: torch.Tensor, code_dot_c: torch.Tensor, cluster_id: torch.Tensor,
+                    probe_mask: torch.Tensor, csq_c: torch.Tensor, csum_c: torch.Tensor, *,
+                    d: int) -> torch.Tensor:
+    """RaBitQ estimates [N] f32 of one globally rotated query ``q_glob``
+    [≤ 8·d8] against every row of the packed codes [N, d8], +inf where the
+    row's cluster is not probed: the estimate mode of ``packed_dot``'s
+    kernel (see :func:`_estimate`), which reads no code bytes of such rows.
+
+    Per row: ``norms``, ``factors``, ``code_dot_c`` [N] f32 and
+    ``cluster_id`` [N] int64, each id in [0, nlist); per cluster:
+    ``probe_mask`` [nlist] bool, ``csq_c`` and ``csum_c`` [nlist] f32.
+    ``d`` scales the estimate (√d)."""
+    _check_estimate(codes, q_glob, norms, factors, code_dot_c, cluster_id, probe_mask, csq_c,
+                    csum_c)
+    n, d8 = codes.shape
+    dev = codes.device
+    if dev.type == "cpu":
+        return packed_estimate_torch(codes, q_glob, norms, factors, code_dot_c, cluster_id,
+                                     probe_mask, csq_c, csum_c, d=d)
+    out = torch.empty_like(norms)
+    if n:
+        _launcher("ls_packed_estimate")(
+            dev, codes.data_ptr(), q_glob.data_ptr(), norms.data_ptr(), factors.data_ptr(),
+            code_dot_c.data_ptr(), cluster_id.data_ptr(), probe_mask.data_ptr(),
+            csq_c.data_ptr(), csum_c.data_ptr(), out.data_ptr(), n, d8, q_glob.shape[0],
+            math.sqrt(d))
+        packed_dot.launches += 1
+    return out
 
 
 def split_bf16x3(q: torch.Tensor):
@@ -220,22 +297,6 @@ def packed_estimate_batch_torch(codes, q_glob, norms, factors, code_dot_c, clust
     return est.T.contiguous()
 
 
-def _check_cluster_ids(cluster_id: torch.Tensor, nlist: int) -> None:
-    """Every cluster id in [0, nlist): the kernel reads the (cluster, query)
-    tables at them unchecked.  On the CPU a bad id raises at once; on the
-    card the check is a device-side assertion, as a torch gather's bounds
-    check is, so the host does not wait for the device."""
-    if not len(cluster_id):
-        return
-    lo, hi = torch.aminmax(cluster_id)
-    ok = (lo >= 0) & (hi < nlist)
-    if cluster_id.device.type == "cpu":
-        if not ok:
-            raise ValueError(f"cluster_id must lie in [0, {nlist}), got [{int(lo)}, {int(hi)}]")
-    else:
-        torch._assert_async(ok, f"cluster_id must lie in [0, {nlist})")
-
-
 def packed_estimate_batch(codes: torch.Tensor, q_glob: torch.Tensor, norms: torch.Tensor,
                           factors: torch.Tensor, code_dot_c: torch.Tensor,
                           cluster_id: torch.Tensor, probe_mask: torch.Tensor,
@@ -250,16 +311,11 @@ def packed_estimate_batch(codes: torch.Tensor, q_glob: torch.Tensor, norms: torc
     ``cluster_id`` [N] int64, each id in [0, nlist); per (cluster, query):
     ``probe_mask`` [nlist, nq] bool, ``csq_c`` and ``csum_c`` [nlist, nq]
     f32.  ``d`` scales the estimate (√d)."""
-    _check(codes, q_glob, 2, norms=norms, factors=factors, code_dot_c=code_dot_c)
+    _check_estimate(codes, q_glob, norms, factors, code_dot_c, cluster_id, probe_mask, csq_c,
+                    csum_c, batch=True)
     n, d8 = codes.shape
     nq = q_glob.shape[0]
     dev = codes.device
-    _check_tensor("cluster_id", cluster_id, torch.int64, (n,), dev)
-    nlist = probe_mask.shape[0] if probe_mask.ndim == 2 else -1
-    _check_tensor("probe_mask", probe_mask, torch.bool, (nlist, nq), dev)
-    _check_tensor("csq_c", csq_c, torch.float32, (nlist, nq), dev)
-    _check_tensor("csum_c", csum_c, torch.float32, (nlist, nq), dev)
-    _check_cluster_ids(cluster_id, nlist)
     g = _query_group(nq, query_group)
     if dev.type == "cpu":
         return packed_estimate_batch_torch(codes, q_glob, norms, factors, code_dot_c,
@@ -384,10 +440,10 @@ def _fused_search_resident(codes, norms, factors, code_dot_c, cluster_id, probe_
                            csq_c, csum_c, q_glob, raw, query, *, d, s, k, do_rerank):
     """Device-resident variant: the WHOLE shard stays in device memory; per
     query only the rotated query and three (nlist,) vectors are new.
-    Non-probed clusters are masked to +inf."""
-    bq = packed_dot(codes, q_glob)
-    est = _estimate(bq, norms, factors, code_dot_c, csq_c[cluster_id], csum_c[cluster_id], d)
-    est = est.masked_fill(~probe_mask[cluster_id], math.inf)
+    Non-probed clusters are masked to +inf, in one kernel that reads no code
+    bytes of theirs."""
+    est = packed_estimate(codes, q_glob, norms, factors, code_dot_c, cluster_id, probe_mask,
+                          csq_c, csum_c, d=d)
     if not do_rerank:
         return _smallest(est, k)
     est_s, idx_s = _smallest(est, s)
