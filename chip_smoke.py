@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
 Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
-serving path and the sharded ANN plane — and fails if any phase fails.
-Each phase prints one JSON line with its own timing:
+serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
+plane, at 4 bits and at 1 — and fails if any phase fails.  Each phase
+prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
@@ -44,19 +45,34 @@ Each phase prints one JSON line with its own timing:
              its estimate mode by the 16 resident ones; no [N, Q]
              elementwise pass left in the 256-query batch's profile; one
              resident single search's profile on a line of its own.
-5. plane   — builds a 10,000,000 x 128 1-bit plane (nlist 512 a shard, a
-             768 MiB shard budget: 14 shards) with ``ShardedAnnBuilder`` from
-             a seeded mixture of 4096 centres (the repo's ANN scale leg,
-             ``benchmarks/micro.py``), opens it, runs a 1024-query
-             batch_search, a mixed-nprobe batch, a ShardedAnnEndpoint under
-             64 pipelining clients, and recall@10 against the
-             ``bruteforce_topk`` oracle over all 10M rows; holds
-             ``ragged_score`` against its plain version on every shard's
-             real item tables, requires a query's item scores bitwise the
-             same in the 1024-query tables, in 16 queries' and alone, and
-             the grouping by tile to make no host-device sync; and holds
-             the plane's kernel path against the same plane on the CPU (a
-             2-shard, 200k-row plane).
+5. ex_slice — the slice's data through a 4-bit ex-code index (nlist 1024,
+             ``fht``, raw kept): train, 4 non-resident and 16 resident single
+             searches, batch_search, an AnnEndpoint under 16 client threads,
+             recall@10 at nprobe = nlist against the ``bruteforce_topk``
+             oracle; the batch, the resident and the non-resident searches
+             held against the same index on the CPU, a query's answer the
+             same alone and in a 256-query batch; the batch's profile and
+             peak device memory.
+6. repro   — ``kmeans`` run twice on one plane shard's rows (759,722 x 128,
+             k 512) must give bitwise-equal centroids and assignments.
+7. plane   — once at the repo's ANN scale leg's ``total_bits = 4``
+             (``benchmarks/micro.py``), once at 1 bit, as the plane first ran:
+             builds a 10,000,000 x 128 plane (nlist 512 a shard, a 768 MiB
+             shard budget: 15 shards at 4 bits, 14 at 1) with
+             ``ShardedAnnBuilder`` from a seeded mixture of 4096 centres,
+             opens it, runs a 1024-query batch_search, a mixed-nprobe batch,
+             a ShardedAnnEndpoint under 64 pipelining clients, and recall@10
+             against the ``bruteforce_topk`` oracle over all 10M rows (taken
+             once, in the 4-bit plane's path, for both: one corpus, one set
+             of queries); requires the scale leg's recall floor 0.95 at 4
+             bits; holds ``ragged_score`` against its plain version on every
+             shard's real item tables, requires a query's item scores
+             bitwise the same in the 1024-query tables, in 16 queries' and
+             alone, and the grouping by tile to make no host-device sync;
+             builds a 2-shard, 200k-row plane twice, requires equal shard
+             digests (the bytes of every array of every segment), and holds
+             the plane's kernel path against it opened on the CPU.  One
+             plane is freed before the next is built.
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
@@ -69,6 +85,7 @@ package.
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import os
 import re
@@ -88,17 +105,20 @@ N_QUERIES, N_ORACLE, N_HOLD = 1024, 256, 32
 N_SCAN_QUERIES = 16  # queries whose probed clusters the slice scans one by one
 RTOL, ATOL = 1e-5, 1e-4
 RECALL_FLOOR = 0.5  # the reference's own bar at full probe (tests/test_e2e_glove.py:182)
+EX_BITS = 4  # the ex slice's total_bits
 # the plane: the repo's ANN scale leg (benchmarks/micro.py:1203-1214, 1217-1231,
-# 1243-1244, 1323) with total_bits 1 instead of 4 (ex-codes are not ported)
+# 1243-1244, 1323, total_bits 4 at :1405), then the same plane at 1 bit
 PLANE_ROWS, PLANE_DIM, PLANE_NLIST, PLANE_CENTERS = 10_000_000, 128, 512, 4096
+PLANE_BITS = (4, 1)
 PLANE_BUDGET = 768 << 20
 PLANE_CHUNK = 500_000
 PLANE_NPROBE, PLANE_RERANK = 48, 64
 PLANE_MIXED = (48, 16, 32, 64)  # per-request nprobe in the mixed batch and at the endpoint
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_DEPTH = 64, 64, 16
 SERVE_MAX_BATCH, SERVE_WAIT_MS = 1024, 3.0
-LEG_RECALL_FLOOR = 0.95  # micro.py's floor, set for 4-bit codes: printed, not enforced
+LEG_RECALL_FLOOR = 0.95  # micro.py:1205's floor for the 4-bit plane: fails the run
 SMALL_PLANE_ROWS, SMALL_PLANE_SHARDS, N_PLANE_HOLD = 200_000, 2, 64
+REPRO_ROWS = 759_722  # one shard of the 1-bit plane: kmeans run twice on its rows
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s off the
 # tensor cores, dense bf16 FLOP/s on them
 PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
@@ -121,7 +141,7 @@ EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", 
                  "product_tensor_core_flop", "product_bound_ms_f32_cuda_cores", "device_ms",
                  "library_device_ms", "grouping_ms", "grouping_device_ms", "estimate_ms",
                  "estimate_device_ms", "estimate_plain_ms", "estimate_bound_ms",
-                 "estimate_bound_by", "estimate_probed_share")
+                 "estimate_bound_by", "estimate_probed_share", "one_bit_plane")
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -751,7 +771,7 @@ def cluster_scans(torch, K, index, queries, nprobe: int) -> list:
 
 
 def phase_slice(torch, K, R) -> dict:
-    from lakesoul_tpu_torch.vector import AnnEndpoint, IvfRabitqIndex, SearchParams, VectorIndexConfig
+    from lakesoul_tpu_torch.vector import IvfRabitqIndex, SearchParams, VectorIndexConfig
     from lakesoul_tpu_torch.vector.oracle import recall_at_k
 
     t0 = time.perf_counter()
@@ -796,23 +816,7 @@ def phase_slice(torch, K, R) -> dict:
     scans = cluster_scans(torch, K, index, queries[:N_SCAN_QUERIES], params.nprobe)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t
-    served, errors = {}, []
-    with AnnEndpoint(index, params, max_batch=256, max_wait_ms=5) as ep:
-        def client(c):
-            try:
-                for i in range(c * 16, c * 16 + 16):
-                    served[i] = ep.search(qs_np[i], timeout=120)
-            except Exception as e:  # surfaced below: a failed client fails the phase
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=client, args=(c,)) for c in range(16)]
-        t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(300)
-        serve_s = time.perf_counter() - t
-        stats = ep.stats()
+    served, errors, serve_s, stats = serve_slice(index, params, qs_np)
     # exact oracle on the card: one bruteforce_topk launch per oracle query
     t = time.perf_counter()
     top = torch.stack([K.bruteforce_topk(x, qo, 10).indices for qo in queries[:N_ORACLE]])
@@ -942,6 +946,136 @@ def phase_slice(torch, K, R) -> dict:
             "packed_dot_timing": single_timing}
 
 
+def serve_slice(index, params, qs_np) -> tuple[dict, list, float, dict]:
+    """An AnnEndpoint under 16 client threads, 16 queries each."""
+    from lakesoul_tpu_torch.vector import AnnEndpoint
+
+    served, errors = {}, []
+    with AnnEndpoint(index, params, max_batch=256, max_wait_ms=5) as ep:
+        def client(c):
+            try:
+                for i in range(c * 16, c * 16 + 16):
+                    served[i] = ep.search(qs_np[i], timeout=120)
+            except Exception as e:  # surfaced by the caller: a failed client fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(16)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        serve_s = time.perf_counter() - t
+        stats = ep.stats()
+    return served, errors, serve_s, stats
+
+
+def phase_ex_slice(torch, K, R) -> dict:
+    """The slice's data through a 4-bit ex-code index: no kernel of the
+    port lies on its search path (the reference computes it outside any
+    Pallas kernel), so the path's kernel is the oracle's."""
+    from lakesoul_tpu_torch.vector import IvfRabitqIndex, SearchParams, VectorIndexConfig
+    from lakesoul_tpu_torch.vector.oracle import recall_at_k
+
+    t0 = time.perf_counter()
+    x, queries = make_data(torch, DEVICE)
+    torch.cuda.synchronize()
+    ids = np.arange(N_VECTORS, dtype=np.uint64)
+    qs_np = queries.cpu().numpy()
+    cfg = VectorIndexConfig("embedding", DIM, nlist=NLIST, total_bits=EX_BITS, rotator="fht",
+                            seed=SEED)
+    params = SearchParams(top_k=10, nprobe=32, rerank_depth=100)
+    full = SearchParams(top_k=10, nprobe=NLIST, rerank_depth=100)
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted: build → search → batch → serve → oracle
+    reset_launches(K, R)
+    t = time.perf_counter()
+    index = IvfRabitqIndex.train(x, ids, cfg, keep_raw=True)  # device=None: the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    require(index.num_vectors == N_VECTORS, "index lost vectors")
+    require(index.clusters[0].codes.dtype == torch.int8, "4-bit ex-codes are not int8")
+    nonresident = [index.search(q, params) for q in qs_np[:4]]
+    index.enable_device_cache()
+    index.batch_search(qs_np[:256], params)  # warm-up: concatenates the resident bundle
+    t = time.perf_counter()
+    b_ids, b_d = index.batch_search(qs_np, params)
+    batch_s = time.perf_counter() - t
+    t = time.perf_counter()
+    f_ids, _ = index.batch_search(qs_np[:N_ORACLE], full)
+    full_s = time.perf_counter() - t
+    single_ms, singles = [], []
+    for q in qs_np[:16]:  # a resident single ex search takes the batch path, one query
+        t = time.perf_counter()
+        singles.append(index.search(q, params))
+        single_ms.append((time.perf_counter() - t) * 1e3)
+    served, errors, serve_s, stats = serve_slice(index, params, qs_np)
+    t = time.perf_counter()
+    top = torch.stack([K.bruteforce_topk(x, qo, 10).indices for qo in queries[:N_ORACLE]])
+    oracle_s = time.perf_counter() - t
+    launches = read_launches(K, R)
+    # ---- end of the counted main path
+
+    require(launches["bruteforce_distances"] > 0, f"the oracle never ran: {launches}")
+    require(not errors and len(served) == 256, f"serving failed: {errors[:3]}")
+    for i, (ids_i, d_i) in served.items():
+        require(same_topk(b_ids[i], b_d[i], ids_i, d_i), f"endpoint result {i} != batch_search")
+    require(all(len(r) == 10 and np.isfinite(d).all()
+                for r, d in zip(b_ids + [s[0] for s in singles], b_d + [s[1] for s in singles])),
+            "ex searches returned short or non-finite results")
+    truth = [set(ids[row].tolist()) for row in top.cpu().numpy()]
+    recall = recall_at_k(truth, b_ids[:N_ORACLE])
+    recall_full = recall_at_k(truth, f_ids)
+    require(recall_full >= RECALL_FLOOR, f"ex recall@10 at nprobe=nlist {recall_full} < {RECALL_FLOOR}")
+    # a query's answer alone, as in the 256-query batch it rode in above
+    alone = [index.batch_search(qs_np[i:i + 1], params) for i in range(16)]
+    alone_held = sum(same_topk(b_ids[i], b_d[i], a[0][0], a[1][0]) for i, a in enumerate(alone))
+    require(alone_held == 16, f"{16 - alone_held} of 16 answers differ alone and in a batch")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    index.batch_search(qs_np[:256], params)
+    batch_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    prof_batch = profile(torch, lambda: index.batch_search(qs_np[:256], params))
+    g_ids, g_d = index.batch_search(qs_np[:N_HOLD], params)
+    del x, top
+
+    # the card's path against the same index on the CPU
+    t = time.perf_counter()
+    cpu_index = IvfRabitqIndex.from_state(index.state(), device="cpu")
+    del index
+    nonres_held = sum(same_topk(*cpu_index.search(q, params), *nonresident[i])
+                      for i, q in enumerate(qs_np[:4]))
+    cpu_index.enable_device_cache()
+    c_ids, c_d = cpu_index.batch_search(qs_np[:N_HOLD], params)
+    held = sum(same_topk(c_ids[i], c_d[i], g_ids[i], g_d[i]) for i in range(N_HOLD))
+    single_held = sum(same_topk(*cpu_index.search(q, params), *singles[i])
+                      for i, q in enumerate(qs_np[:len(singles)]))
+    hold_s = time.perf_counter() - t
+    require(held == N_HOLD, f"ex batch != plain path on {N_HOLD - held} of {N_HOLD} queries")
+    require(single_held == len(singles),
+            f"resident ex search != plain path on {len(singles) - single_held} queries")
+    require(nonres_held == 4, f"non-resident ex search != plain path on {4 - nonres_held} of 4")
+
+    emit(
+        "ex_slice", seconds=time.perf_counter() - t0, vectors=N_VECTORS, dim=DIM, nlist=NLIST,
+        total_bits=EX_BITS, build_s=build_s, batch_qps=N_QUERIES / batch_s, batch_s=batch_s,
+        batch_qps_full_probe=N_ORACLE / full_s,
+        single_search_ms_p50=float(np.median(single_ms)), single_search_ms=single_ms,
+        serving_qps=256 / serve_s, serving_p50_s=stats["latency_p50"],
+        serving_p99_s=stats["latency_p99"], serving_mean_batch=stats["mean_batch"],
+        serving_batches=stats["batches"], recall_at_10_nprobe32=recall,
+        recall_at_10_full_probe=recall_full, oracle_s=oracle_s, peak_device_gb=peak_gb,
+        batch_peak_device_gb=batch_peak_gb, launches=launches,
+        alone_in_batch_held=f"{alone_held}/16", plain_path_held=f"{held}/{N_HOLD}",
+        single_plain_path_held=f"{single_held}/{len(singles)}",
+        nonresident_plain_path_held=f"{nonres_held}/4", plain_path_s=hold_s,
+        profile_batch_256=prof_batch,
+    )
+    return {"launches": launches}
+
+
 def make_plane_data(torch, dev, n: int, n_q: int):
     """The scale leg's clustered corpus, generated on the card: 4096 centres
     of scale 3.0 plus unit noise (``_ann_scale_corpus_chunks``), and fresh
@@ -997,7 +1131,50 @@ def serve_plane(ep, qs_np) -> tuple[dict, list, float]:
     return served, errors, time.perf_counter() - t
 
 
-def phase_plane(torch, K, R) -> dict:
+def plane_digests(root: str) -> list:
+    """One sha256 a shard of a plane directory: over its centroids and the
+    bytes of every array of every segment, field by field (the npz files
+    themselves carry their write times)."""
+    from lakesoul_tpu_torch.annplane import PlaneManifestStore
+    from lakesoul_tpu_torch.annplane.build import shard_root
+    from lakesoul_tpu_torch.vector.manifest import ManifestStore
+
+    out = []
+    for e in PlaneManifestStore(root).read()["shards"]:
+        store = ManifestStore(shard_root(root, e["shard"]))
+        st = store.state(store.read_manifest_at(e["generation"]))
+        h = hashlib.sha256(np.ascontiguousarray(st["centroids"]).tobytes())
+        for seg in st["clusters"] + sum(st["deltas"], []):
+            for f in sorted(seg):
+                h.update(f.encode() + np.ascontiguousarray(seg[f]).tobytes())
+        out.append(h.hexdigest()[:16])
+    return out
+
+
+def phase_repro(torch, x) -> dict:
+    """``kmeans`` twice from one seed on one plane shard's rows: the
+    centroids and assignments must be bitwise equal."""
+    from lakesoul_tpu_torch.vector.kmeans import kmeans
+
+    rows = x[:REPRO_ROWS]
+    runs, secs = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        runs.append(kmeans(rows, PLANE_NLIST, iters=10, seed=SEED))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    (c1, a1), (c2, a2) = runs
+    same = {"centroids": torch.equal(c1, c2), "assignments": torch.equal(a1, a2)}
+    require(all(same.values()), f"kmeans is not reproducible: {same}")
+    emit("repro", rows=REPRO_ROWS, dim=PLANE_DIM, k=PLANE_NLIST, iters=10, kmeans_s=secs,
+         bitwise_equal=same)
+    return {"kmeans_s": secs}
+
+
+def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
+    """One plane at ``bits`` over the corpus ``x``.  ``top``: the oracle's
+    exact top-10 rows of the first N_ORACLE queries, from an earlier plane
+    of the same corpus; None takes it here, in the counted path."""
     from lakesoul_tpu_torch.annplane import (
         AnnPlane,
         AnnPlaneConfig,
@@ -1009,10 +1186,8 @@ def phase_plane(torch, K, R) -> dict:
 
     t0 = time.perf_counter()
     dev = DEVICE
-    x, queries = make_plane_data(torch, dev, PLANE_ROWS, N_QUERIES)
-    torch.cuda.synchronize()
     qs_np = queries.cpu().numpy()
-    index_cfg = VectorIndexConfig("emb", PLANE_DIM, nlist=PLANE_NLIST, total_bits=1, seed=SEED)
+    index_cfg = VectorIndexConfig("emb", PLANE_DIM, nlist=PLANE_NLIST, total_bits=bits, seed=SEED)
     cfg = AnnPlaneConfig(index=index_cfg, shard_budget_bytes=PLANE_BUDGET, keep_raw=True)
     params = SearchParams(top_k=10, nprobe=PLANE_NPROBE, rerank_depth=PLANE_RERANK)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_plane_")
@@ -1045,18 +1220,22 @@ def phase_plane(torch, K, R) -> dict:
         with ShardedAnnEndpoint(plane, params, max_batch=SERVE_MAX_BATCH,
                                 max_wait_ms=SERVE_WAIT_MS,
                                 max_pending=2 * SERVE_CLIENTS * SERVE_DEPTH,
-                                name="chip_smoke_plane") as ep:
+                                name=f"chip_smoke_plane_{bits}bit") as ep:
             ep.search(qs_np[0])  # warm the dispatch path
             served, errors, serve_s = serve_plane(ep, qs_np)
             stats = ep.stats()
         t = time.perf_counter()
-        top = torch.stack([K.bruteforce_topk(x, qo, 10).indices for qo in queries[:N_ORACLE]])
+        oracle_here = top is None
+        if oracle_here:
+            top = torch.stack([K.bruteforce_topk(x, qo, 10).indices
+                               for qo in queries[:N_ORACLE]]).cpu().numpy()
         oracle_s = time.perf_counter() - t
         launches = read_launches(K, R)
         # ---- end of the counted main path
 
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        require(launches["ragged_score"] > 0 and launches["bruteforce_distances"] > 0,
+        on_path = ("ragged_score", "bruteforce_distances") if oracle_here else ("ragged_score",)
+        require(all(launches[k] for k in on_path),
                 f"a kernel never ran on the plane's path: {launches}")
         require(all(len(r) == 10 and np.isfinite(d).all() for r, d in zip(b_ids, b_d)),
                 "batch_search returned short or non-finite results")
@@ -1075,9 +1254,10 @@ def phase_plane(torch, K, R) -> dict:
             want_d += w[1]
         for key, wi, wd in zip(keys, want_ids, want_d):
             require(same_topk(wi, wd, *served[key]), f"endpoint result {key} != batch_search")
-        truth = [set(row.tolist()) for row in top.cpu().numpy()]
+        truth = [set(row.tolist()) for row in top]
         recall = recall_at_k(truth, b_ids[:N_ORACLE])
-        require(recall >= RECALL_FLOOR, f"plane recall@10 {recall} < {RECALL_FLOOR}")
+        floor = LEG_RECALL_FLOOR if bits == 4 else RECALL_FLOOR
+        require(recall >= floor, f"{bits}-bit plane recall@10 {recall} < {floor}")
         prof = profile(torch, lambda: plane.batch_search(qs_np, params))
 
         # ragged_score on every shard's real item tables from one 256-query
@@ -1134,34 +1314,41 @@ def phase_plane(torch, K, R) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "shape": b_work,
             "batch_invariance": invariance,
         }
-        del t_items, tiles_view, plane
+        del t_items, tiles_view, plane, sh, q_glob
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
-        # the kernel path against the plain path: a small plane, built on the
-        # card, opened on the card and on the CPU
-        small_root = os.path.join(workdir, "small")
+        # reproducible: a small plane built twice gives equal shard digests;
+        # the kernel path against the plain path: that plane opened on the
+        # card and on the CPU
         small_cfg = AnnPlaneConfig(
             index=index_cfg, keep_raw=True,
             shard_budget_bytes=SMALL_PLANE_ROWS // SMALL_PLANE_SHARDS * cfg.bytes_per_vector(),
         )
-        ShardedAnnBuilder(small_root, small_cfg).build(plane_stream(x, SMALL_PLANE_ROWS))
+        digests = []
+        for i in range(2):
+            small_root = os.path.join(workdir, f"small{i}")
+            ShardedAnnBuilder(small_root, small_cfg).build(plane_stream(x, SMALL_PLANE_ROWS))
+            digests.append(plane_digests(small_root))
+        require(len(digests[0]) == SMALL_PLANE_SHARDS and digests[0] == digests[1],
+                f"the small plane built twice differs: {digests}")
         t = time.perf_counter()
         on_card, on_cpu = AnnPlane.open(small_root), AnnPlane.open(small_root, device="cpu")
-        require(len(on_card.shards) == SMALL_PLANE_SHARDS, "the small plane's shard count")
         g_ids, g_d = on_card.batch_search(qs_np[:N_PLANE_HOLD], params)
         c_ids, c_d = on_cpu.batch_search(qs_np[:N_PLANE_HOLD], params)
         held = sum(same_topk(c_ids[i], c_d[i], g_ids[i], g_d[i]) for i in range(N_PLANE_HOLD))
         hold_s = time.perf_counter() - t
         require(held == N_PLANE_HOLD,
                 f"plane kernel path != plain path on {N_PLANE_HOLD - held} of {N_PLANE_HOLD}")
+        del on_card, on_cpu
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     emit(
-        "plane", seconds=time.perf_counter() - t0, vectors=PLANE_ROWS, dim=PLANE_DIM,
-        nlist_per_shard=PLANE_NLIST, shards=len(manifest["shards"]),
+        "plane", seconds=time.perf_counter() - t0, total_bits=bits, vectors=PLANE_ROWS,
+        dim=PLANE_DIM, nlist_per_shard=PLANE_NLIST, shards=len(manifest["shards"]),
         rows_per_shard=manifest["rows_per_shard"], shard_budget_bytes=PLANE_BUDGET,
-        reduced={"total_bits": "1, from the scale leg's 4: ex-codes are not ported",
-                 "corpus": "generated on the card, not written to and scanned from a table"},
+        reduced={"corpus": "generated on the card, not written to and scanned from a table"},
         build_s=build_s, open_s=open_s, peak_device_gb=peak_gb,
         batch_qps=N_QUERIES / batch_s, batch_s=batch_s, nprobe=PLANE_NPROBE,
         rerank_depth=PLANE_RERANK, mixed_nprobe_batch_held="64/64",
@@ -1169,15 +1356,15 @@ def phase_plane(torch, K, R) -> dict:
         serving_p99_s=stats["latency_p99"], serving_mean_batch=stats["mean_batch"],
         serving_batches=stats["batches"], serving_requests=n_req,
         endpoint_held=f"{len(keys)}/{len(keys)} distinct (query, nprobe)",
-        recall_at_10=recall, recall_floor=RECALL_FLOOR,
-        leg_recall_floor_not_enforced=LEG_RECALL_FLOOR, oracle_s=oracle_s,
-        launches=launches, ragged_main_path_max_abs_err=ragged_err,
+        recall_at_10=recall, recall_floor=floor, oracle_taken_here=oracle_here,
+        oracle_s=oracle_s, launches=launches, ragged_main_path_max_abs_err=ragged_err,
         ragged_items_checked=ragged_items, ragged_timing=ragged_timing,
+        small_plane_digests=digests[0], small_plane_digests_equal=True,
         plain_path_held=f"{held}/{N_PLANE_HOLD}", plain_path_s=hold_s,
         profile_batch_1024=prof,
     )
     return {"launches": launches, "errs": {"ragged_score": ragged_err},
-            "ragged_timing": ragged_timing}
+            "ragged_timing": ragged_timing, "top": top}
 
 
 def main() -> int:
@@ -1213,18 +1400,30 @@ def main() -> int:
     kernels = phase_kernels(torch, K, R)
     sl = phase_slice(torch, K, R)
     torch.cuda.empty_cache()
-    pl = phase_plane(torch, K, R)
+    ex = phase_ex_slice(torch, K, R)
+    torch.cuda.empty_cache()
+    x, queries = make_plane_data(torch, DEVICE, PLANE_ROWS, N_QUERIES)
+    phase_repro(torch, x)
+    planes, top = {}, None
+    for bits in PLANE_BITS:  # one plane freed before the next is built
+        planes[bits] = phase_plane(torch, K, R, x, queries, bits, top)
+        top = planes[bits]["top"]
+        torch.cuda.empty_cache()
 
+    # ragged_score's record: the scale leg's 4-bit plane, the 1-bit plane's beside it
     timings = {**kernels["timings"], "packed_scan": sl["packed_scan_timing"],
-               "packed_dot": sl["packed_dot_timing"], "ragged_score": pl["ragged_timing"]}
+               "packed_dot": sl["packed_dot_timing"],
+               "ragged_score": {**planes[4]["ragged_timing"],
+                                "one_bit_plane": planes[1]["ragged_timing"]}}
+    paths = [sl, ex, *planes.values()]
     record = []
     for name, (source, replaces, library_call) in KERNELS.items():
         t = timings[name]
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sl["launches"][name] + pl["launches"][name],
-            "max_abs_err": max(kernels["errs"][name], sl["errs"].get(name, 0.0),
-                               pl["errs"].get(name, 0.0)),
+            "launches": sum(p["launches"][name] for p in paths),
+            "max_abs_err": max([kernels["errs"][name]]
+                               + [p.get("errs", {}).get(name, 0.0) for p in paths]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "library_call": library_call, **{k: t[k] for k in EXTRA_TIMINGS if k in t},

@@ -56,11 +56,14 @@ def ragged_arange(starts, counts) -> np.ndarray:
 
 
 def fold_cluster(norms: torch.Tensor, factors: torch.Tensor, code_dot_c: torch.Tensor,
-                 *, d: int):
-    """Fold per-row 1-bit RaBitQ constants into the (a, b, h) form of the
-    ragged estimator, on the tensors' device, with the 1/sqrt(D) bit-plane
-    normalization folded in.  (The reference's ex-code form, ``ex=True``,
-    comes with the ex-code path.)"""
+                 *, d: int, ex: bool = False):
+    """Fold per-row RaBitQ constants into the (a, b, h) form of the ragged
+    estimator, on the tensors' device.  ``ex`` selects the ex-code
+    estimator (a = 2·norm/factor, csum unused, h = 0); the 1-bit form folds
+    the 1/sqrt(D) bit-plane normalization in."""
+    if ex:
+        a = 2.0 * norms / factors
+        return a, norms * norms + a * code_dot_c, torch.zeros_like(a)
     root_d = float(np.float32(np.sqrt(d)))
     hh = 2.0 * norms / (factors * root_d)
     a = 2.0 * hh

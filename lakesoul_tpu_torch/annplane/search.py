@@ -4,7 +4,8 @@ exact re-rank, all on the plane's device.
 
 Opening a plane loads every shard's IVF-RaBitQ index into a RESIDENT layout
 built on the device: cluster-sorted rows, padded per cluster to a TILE
-multiple, 1-bit codes unpacked to f32.  A search micro-batch:
+multiple, 1-bit codes unpacked to f32 (ex-codes as codes · scales, the same
+f32 layout).  A search micro-batch:
 
 1. **probe selection** — one gram matmul of the batch against ALL shards'
    centroids and a ``topk``: each query takes its ``nprobe`` nearest
@@ -113,8 +114,15 @@ class _ShardResident:
         def cat(field):
             return torch.cat([getattr(s, field) for _, s in segs]).to(dev)
 
-        self.codes[dest_t] = unpack_bits(cat("codes"), dpad)
-        a, b, h = fold_cluster(cat("norms"), cat("factors"), cat("code_dot_c"), d=dpad)
+        ex = index.config.total_bits > 1
+        if ex:
+            if any(s.scales is None for _, s in segs):
+                raise VectorIndexError("ex-bits shard segment has no scales — rebuild")
+            # u_hat = codes · scales, one float32 multiply an element
+            self.codes[dest_t] = cat("codes").to(torch.float32) * cat("scales")[:, None]
+        else:
+            self.codes[dest_t] = unpack_bits(cat("codes"), dpad)
+        a, b, h = fold_cluster(cat("norms"), cat("factors"), cat("code_dot_c"), d=dpad, ex=ex)
         self.a[dest_t], self.b[dest_t], self.h[dest_t] = a, b, h
         if self.raw is not None:
             if any(s.raw is None for _, s in segs):
@@ -151,6 +159,7 @@ class AnnPlane:
         self._cent64 = self.centroids.double()
         self._cent_sq = (self._cent64 * self._cent64).sum(1)
         self._cent_rot_sum = self.quantizer.rotate(self.centroids).double().sum(1).cpu().numpy()
+        self._ex = self.config.total_bits > 1  # ex-codes: csum is 0
         # a shard's candidate row r is plane row row_offset[shard] + r
         sizes = [len(s.ids) for s in shards]
         self._row_offset = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
@@ -228,8 +237,11 @@ class AnnPlane:
         keep = np.arange(sel.shape[1])[None, :] < nprobes[:, None]
         pairs_q = np.repeat(np.arange(nq, dtype=np.int64), keep.sum(axis=1))
         pairs_gc = sel[keep]
-        csum = self._cent_rot_sum[pairs_gc] - qsum[pairs_q]
-        return pairs_q, pairs_gc, sel_d[keep], csum.astype(np.float32), q_glob
+        if self._ex:
+            csum = np.zeros(len(pairs_gc), np.float32)
+        else:
+            csum = (self._cent_rot_sum[pairs_gc] - qsum[pairs_q]).astype(np.float32)
+        return pairs_q, pairs_gc, sel_d[keep], csum, q_glob
 
     def batch_search(self, queries, params: SearchParams = SearchParams(), *,
                      nprobes=None):

@@ -1,11 +1,13 @@
 """IVF + RaBitQ ANN index in PyTorch (the port of
-``lakesoul_tpu/vector/index.py`` for ``total_bits == 1``).
+``lakesoul_tpu/vector/index.py``).
 
 Cluster scans are packed-code products on the index's device
-(:mod:`lakesoul_tpu_torch.vector.kernels`); train is k-means on the same
-device.  Codes, norms, factors and raw vectors live on the device as
-tensors; row ids stay on the host as ``np.uint64`` (torch has no usable
-unsigned 64-bit type).
+(:mod:`lakesoul_tpu_torch.vector.kernels`) for 1-bit codes, and codes ·
+query products taken in float64 for the ex-codes of ``total_bits`` 2-16
+(int8 up to 8 bits, int16 above, one scale a row); train is k-means on
+the same device.  Codes, norms, factors, scales and raw vectors live on the
+device as tensors; row ids stay on the host as ``np.uint64`` (torch has no
+usable unsigned 64-bit type).
 
 Incremental inserts append to per-cluster *delta* segments, mirroring the
 reference's base + delta segments; ``merge_deltas()`` folds them in.
@@ -31,9 +33,11 @@ from lakesoul_tpu_torch.vector.kernels import (
     PAD_RAW,
     _fused_search_resident,
     _fused_search_resident_batch,
+    _fused_search_resident_ex_batch,
     _pad_tail,
     _pow2_bucket,
     fused_search,
+    fused_search_ex,
 )
 from lakesoul_tpu_torch.vector.kmeans import kmeans
 from lakesoul_tpu_torch.vector.rabitq import RabitqQuantizer
@@ -72,18 +76,20 @@ class SearchParams:
 
 @dataclass
 class _Cluster:
-    codes: torch.Tensor  # [n, padded/8] uint8 packed sign bits
+    codes: torch.Tensor  # 1-bit: [n, padded/8] uint8 packed; ex: [n, padded] int8|int16
     norms: torch.Tensor  # [n] f32
     factors: torch.Tensor  # [n] f32
     ids: np.ndarray  # [n] u64 row ids, host side
-    code_dot_c: torch.Tensor  # [n] f32: bits · P(centroid)
+    code_dot_c: torch.Tensor  # [n] f32: bits (or u_hat) · P(centroid)
     raw: torch.Tensor | None = None  # [n, dim] f32 (kept for exact re-rank)
+    scales: torch.Tensor | None = None  # [n] f32, ex-codes only (u_hat = codes*scales)
+
+
+_FIELDS = ("codes", "norms", "factors", "code_dot_c", "raw", "scales")
 
 
 class IvfRabitqIndex:
     def __init__(self, config: VectorIndexConfig, device: str | torch.device | None = None):
-        if config.total_bits > 1:
-            raise ConfigError("ex-codes not ported yet (total_bits > 1)")
         self.config = config
         self.device = resolve_device(device)
         self.quantizer = RabitqQuantizer(
@@ -99,6 +105,22 @@ class IvfRabitqIndex:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @property
+    def _ex_bits(self) -> bool:
+        return self.config.total_bits > 1
+
+    def _quantize(self, vectors: torch.Tensor, centroid: torch.Tensor) -> dict:
+        """The quantized fields of rows against their centroid (one, or one
+        a row): 1-bit packed codes, or ex-codes with their scales."""
+        if self._ex_bits:
+            codes, scales, norms, factors, cdc = self.quantizer.quantize_ex(
+                vectors, centroid, self.config.total_bits)
+        else:
+            codes, norms, factors, cdc = self.quantizer.quantize(vectors, centroid)
+            scales = None
+        return {"codes": codes, "norms": norms, "factors": factors, "code_dot_c": cdc,
+                "scales": scales}
 
     # ------------------------------------------------------------------ train
     @classmethod
@@ -148,22 +170,20 @@ class IvfRabitqIndex:
         order = torch.argsort(assign, stable=True)
         counts = torch.bincount(assign, minlength=nlist).tolist()
         vs = vectors[order]
-        codes, norms, factors, cdc = self.quantizer.quantize(vs, self.centroids[assign[order]])
-        ids_sorted = ids[order.cpu().numpy()]
-        parts = [torch.split(t, counts) for t in (codes, norms, factors, cdc, vs)]
-        ids_parts = np.split(ids_sorted, np.cumsum(counts)[:-1])
-        return [
-            _Cluster(codes=c, norms=nm, factors=f, ids=i, code_dot_c=cd,
-                     raw=v if self.keep_raw else None)
-            for c, nm, f, cd, v, i in zip(*parts, ids_parts)
-        ]
+        fields = self._quantize(vs, self.centroids[assign[order]])
+        fields["raw"] = vs if self.keep_raw else None
+        parts = {f: torch.split(t, counts) if t is not None else [None] * nlist
+                 for f, t in fields.items()}
+        ids_parts = np.split(ids[order.cpu().numpy()], np.cumsum(counts)[:-1])
+        return [_Cluster(ids=i, **{f: p[c] for f, p in parts.items()})
+                for c, i in enumerate(ids_parts)]
 
     def _make_cluster(self, vectors: torch.Tensor, ids: np.ndarray, centroid) -> _Cluster:
-        codes, norms, factors, code_dot_c = self.quantizer.quantize(vectors, centroid)
-        return _Cluster(
-            codes=codes, norms=norms, factors=factors, ids=ids, code_dot_c=code_dot_c,
-            raw=vectors.clone() if self.keep_raw else None,
-        )
+        """One segment of rows against one centroid; no rows give an empty
+        segment with the index's code layout ([0, padded] int8 / int16 for
+        ex-codes)."""
+        return _Cluster(ids=ids, raw=vectors.clone() if self.keep_raw else None,
+                        **self._quantize(vectors, centroid))
 
     # ------------------------------------------------------------ carry over
     def state(self) -> dict:
@@ -172,7 +192,7 @@ class IvfRabitqIndex:
 
         def seg(c: _Cluster) -> dict:
             out = {"ids": c.ids.copy()}
-            for f in ("codes", "norms", "factors", "code_dot_c", "raw"):
+            for f in _FIELDS:
                 t = getattr(c, f)
                 out[f] = None if t is None else t.cpu().numpy()
             return out
@@ -199,18 +219,22 @@ class IvfRabitqIndex:
         return index
 
     def _segment_from_state(self, s: dict) -> _Cluster:
-        if s.get("scales") is not None:
-            raise ConfigError("ex-codes not ported yet (segment carries scales)")
+        """One segment's arrays as tensors on the index's device.  An ex
+        segment without scales loads, and its search raises, as the
+        reference's does."""
         if s.get("code_dot_c") is None:
             raise VectorIndexError("segment has no code_dot_c: rebuild the index")
+        tb = self.config.total_bits
+        code_dtype = np.uint8 if tb == 1 else np.int8 if tb <= 8 else np.int16
+
+        def f32(f):
+            return None if s.get(f) is None else self._tensor(np.array(s[f], np.float32))
+
         # np.array copies: the index never aliases the caller's arrays
         return _Cluster(
-            codes=torch.as_tensor(np.array(s["codes"], np.uint8), device=self.device),
-            norms=self._tensor(np.array(s["norms"], np.float32)),
-            factors=self._tensor(np.array(s["factors"], np.float32)),
+            codes=torch.as_tensor(np.array(s["codes"], code_dtype), device=self.device),
             ids=np.array(s["ids"], np.uint64),
-            code_dot_c=self._tensor(np.array(s["code_dot_c"], np.float32)),
-            raw=None if s.get("raw") is None else self._tensor(np.array(s["raw"], np.float32)),
+            **{f: f32(f) for f in _FIELDS if f != "codes"},
         )
 
     # ----------------------------------------------------------------- insert
@@ -242,18 +266,15 @@ class IvfRabitqIndex:
             if not deltas:
                 continue
             segs = [self.clusters[c]] + deltas
-            raws = [s.raw for s in segs]
+
+            def cat(f):
+                ts = [getattr(s, f) for s in segs]
+                return torch.cat(ts) if all(t is not None for t in ts) else None
+
             self.clusters[c] = _Cluster(
-                codes=torch.cat([s.codes for s in segs]),
-                norms=torch.cat([s.norms for s in segs]),
-                factors=torch.cat([s.factors for s in segs]),
                 ids=np.concatenate([s.ids for s in segs]),
-                code_dot_c=torch.cat([s.code_dot_c for s in segs]),
-                raw=(
-                    torch.cat(raws)
-                    if self.keep_raw and all(r is not None for r in raws)
-                    else None
-                ),
+                **{f: cat(f) for f in _FIELDS if f != "raw"},
+                raw=cat("raw") if self.keep_raw else None,
             )
             self.deltas[c] = []
 
@@ -294,6 +315,12 @@ class IvfRabitqIndex:
         raws = [s.raw for _, s in segs]
         bundle = {
             "codes": cat("codes", 0),
+            # ex-codes: pad rows get scale 1 (their codes are 0)
+            "scales": (
+                cat("scales", 1.0)
+                if self._ex_bits and all(s.scales is not None for _, s in segs)
+                else None
+            ),
             "norms": cat("norms", PAD_NORM),
             "factors": cat("factors", PAD_FACTOR),
             "cdc": cat("code_dot_c"),
@@ -366,8 +393,16 @@ class IvfRabitqIndex:
         if self.centroids is None:
             raise VectorIndexError("index not trained")
         query = self._tensor(query)
+        ex = self._ex_bits
+        resident = self._device_cache_enabled and allowed_ids is None and rerank == self.keep_raw
+        if resident and ex:
+            # ex-codes: the batched resident search IS the single-query path
+            # (one query column), as the reference's; it probes for itself
+            out = self._batch_search_device_resident(query[None, :], params)
+            if out is not None:
+                return out[0][0], out[1][0]
         probe = self._probe(query, min(params.nprobe, len(self.centroids)))
-        if self._device_cache_enabled and allowed_ids is None and rerank == self.keep_raw:
+        if resident and not ex:
             return self._search_device_resident(query, params, probe)
 
         # All probed segments are concatenated into ONE fused pass.  Rotation
@@ -377,12 +412,13 @@ class IvfRabitqIndex:
         # where <o_bar, xc> needs only bits·Q plus the build-time per-row
         # constant code_dot_c = bits·P(c) and two per-cluster scalars
         # (||xc||², Σxc) broadcast per row.
-        cand = {k: [] for k in ("ids", "codes", "norms", "factors", "cdc", "csq", "csum", "raw")}
+        cand = {k: [] for k in ("ids", "codes", "norms", "factors", "cdc", "csq", "csum", "raw",
+                                "scales")}
         q_glob = self.quantizer.rotate(query)  # P(query), computed once
         rot = self._rotated_centroids()
         for c in probe.tolist():
             xc = rot[c] - q_glob
-            xc_sq, xc_sum = (xc * xc).sum(), xc.sum()
+            xc_sq, xc_sum = (xc * xc).sum(), xc.sum()  # the ex estimator takes no csum
             for seg in self._cluster_segments(c):
                 if len(seg.ids) == 0:
                     continue
@@ -403,11 +439,33 @@ class IvfRabitqIndex:
                 cand["csq"].append(xc_sq.expand(n_seg))
                 cand["csum"].append(xc_sum.expand(n_seg))
                 cand["raw"].append(seg.raw[sel] if seg.raw is not None else None)
+                if ex:
+                    if seg.scales is None:
+                        raise VectorIndexError(
+                            "index config says total_bits > 1 but segment has no scales"
+                            " (legacy 1-bit shard?) — rebuild the index"
+                        )
+                    cand["scales"].append(seg.scales[sel])
 
         if not cand["ids"]:
             return _empty_result()
         ids = np.concatenate(cand["ids"])
         use_rerank = rerank and self.keep_raw and all(r is not None for r in cand["raw"])
+        if ex:
+            dists, idx = fused_search_ex(
+                torch.cat(cand["codes"]),
+                torch.cat(cand["scales"]),
+                torch.cat(cand["norms"]),
+                torch.cat(cand["factors"]),
+                torch.cat(cand["cdc"]),
+                torch.cat(cand["csq"]),
+                q_glob,
+                torch.cat(cand["raw"]) if use_rerank else None,
+                query,
+                top_k=params.top_k,
+                shortlist=params.shortlist(),
+            )
+            return _finalize_topk(ids, dists, idx, params.top_k)
         dists, idx = fused_search(
             torch.cat(cand["codes"]),
             torch.cat(cand["norms"]),
@@ -500,8 +558,9 @@ class IvfRabitqIndex:
     def _batch_search_device_resident(self, queries: torch.Tensor, params: SearchParams):
         nq = len(queries)
         if nq > MAX_Q:
-            if self._get_device_bundle() is None:
-                return None
+            bundle = self._get_device_bundle()
+            if bundle is None or (self._ex_bits and bundle["scales"] is None):
+                return None  # the guards of _dispatch_resident, before chunking
             ids_all, d_all = [], []
             for start in range(0, nq, MAX_Q):
                 ids_c, d_c = self._batch_search_device_resident(
@@ -546,6 +605,8 @@ class IvfRabitqIndex:
         bundle = self._get_device_bundle()
         if bundle is None:
             return None
+        if self._ex_bits and bundle["scales"] is None:
+            return None  # segments without scales: the non-resident path raises
         nq = len(queries)
         # pow2 query buckets ≥ 8, as the reference: pad queries stay fully
         # masked and score +inf
@@ -572,13 +633,21 @@ class IvfRabitqIndex:
         )
         csum_c = cent.sum(1)[:, None] - q_glob.sum(1)[None, :]
         n_pad = len(bundle["codes"])
-        dists, idx = _fused_search_resident_batch(
-            bundle["codes"], bundle["norms"], bundle["factors"], bundle["cdc"],
-            bundle["cluster_id"], probe_mask, csq_c, csum_c, q_glob.contiguous(),
-            bundle["raw"], queries,
-            d=self.quantizer.padded_dim, s=min(params.shortlist(), n_pad),
-            k=min(params.top_k, n_pad), do_rerank=bundle["raw"] is not None,
-        )
+        s, k = min(params.shortlist(), n_pad), min(params.top_k, n_pad)
+        do_rerank = bundle["raw"] is not None
+        if self._ex_bits:
+            dists, idx = _fused_search_resident_ex_batch(
+                bundle["codes"], bundle["scales"], bundle["norms"], bundle["factors"],
+                bundle["cdc"], bundle["cluster_id"], probe_mask, csq_c, q_glob,
+                bundle["raw"], queries, s=s, k=k, do_rerank=do_rerank,
+            )
+        else:
+            dists, idx = _fused_search_resident_batch(
+                bundle["codes"], bundle["norms"], bundle["factors"], bundle["cdc"],
+                bundle["cluster_id"], probe_mask, csq_c, csum_c, q_glob.contiguous(),
+                bundle["raw"], queries,
+                d=self.quantizer.padded_dim, s=s, k=k, do_rerank=do_rerank,
+            )
         return dists, idx, nq, bundle
 
     @staticmethod

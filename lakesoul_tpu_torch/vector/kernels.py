@@ -39,7 +39,11 @@ are the same without them, so they are dropped.
 
 The query is taken in natural order: the plane-concat layout of the TPU
 kernels only avoided 3-D reshapes in Mosaic.  Top-k, gather and exact
-re-rank are torch ops.
+re-rank are torch ops, and so are the ex-code search bodies
+(``total_bits`` 2-16: :func:`fused_search_ex`,
+:func:`_fused_search_resident_ex_batch`), which the reference computes
+outside any Pallas kernel: int8 / int16 codes times the queries in float64,
+EX_CHUNK rows at a time (:func:`ex_dot`).
 """
 
 from __future__ import annotations
@@ -416,6 +420,17 @@ def _exact(sub: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (sub * sub).sum(-1) - 2.0 * (sub @ q) + (q * q).sum()
 
 
+def _rerank_topk(est, raw, query, *, s: int, k: int, do_rerank: bool):
+    """Shared tail of the single-query searches: [N] estimates → (dists
+    [k], indices [k]) after the top-S shortlist's exact re-rank."""
+    if not do_rerank:
+        return _smallest(est, k)
+    _, idx_s = _smallest(est, s)
+    exact = _exact(raw[idx_s], query)
+    dists, order = _smallest(exact, k)
+    return dists, idx_s[order]
+
+
 def _fused_search(codes, norms, factors, code_dot_c, csq, csum, q_glob, raw, query,
                   *, d, s, k, do_rerank):
     """One device pass per query over the concatenated probe set.
@@ -428,12 +443,7 @@ def _fused_search(codes, norms, factors, code_dot_c, csq, csum, q_glob, raw, que
     gather + exact re-rank → top-k."""
     bq = packed_dot(codes, q_glob)
     est = _estimate(bq, norms, factors, code_dot_c, csq, csum, d)
-    if not do_rerank:
-        return _smallest(est, k)
-    _, idx_s = _smallest(est, s)
-    exact = _exact(raw[idx_s], query)
-    dists, order = _smallest(exact, k)
-    return dists, idx_s[order]
+    return _rerank_topk(est, raw, query, s=s, k=k, do_rerank=do_rerank)
 
 
 def _fused_search_resident(codes, norms, factors, code_dot_c, cluster_id, probe_mask,
@@ -510,3 +520,82 @@ def fused_search(codes, norms, factors, code_dot_c, csq, csum, q_glob, raw, quer
         d=d, s=min(shortlist, n_pad), k=min(top_k, n_pad), do_rerank=do_rerank,
     )
     return dists.cpu().numpy(), idx.cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# ex-code search bodies (total_bits 2-16): torch ops, as the reference's
+# jnp bodies are (no Pallas kernel lies behind them)
+# --------------------------------------------------------------------------
+
+# code rows converted to float64 at a time: bounds the temporary (256 MB at
+# d 512) whatever N is
+EX_CHUNK = 65536
+
+
+def ex_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Integer ex-codes [N, d] (int8 / int16) times q [d] → [N], or times
+    Qᵀ for q [nq, d] → [N, nq], in float32.
+
+    Torch has no int8 × float32 matmul on CUDA, so each chunk of EX_CHUNK
+    rows is converted, to float64: every code × query product is exact
+    there and the sum carries 53 bits, so rounding it to float32 hides the
+    summation order cuBLAS picks by the batch's shape (but for a sum within
+    ~1e-16 of a float32 rounding boundary) — a query's products are the
+    same alone and in a batch."""
+    q64 = q.double() if q.ndim == 1 else q.double().T
+    out = torch.empty((len(codes), *q64.shape[1:]), dtype=torch.float32, device=codes.device)
+    for lo in range(0, len(codes), EX_CHUNK):
+        out[lo:lo + EX_CHUNK] = codes[lo:lo + EX_CHUNK].double() @ q64
+    return out
+
+
+def _estimate_ex(g, scales, norms, factors, code_dot_c, csq):
+    """The ex-code estimator in the global query frame, with
+    g = codes · Q (u_hat · Q = g · scale):
+        dist² ≈ ||r||² + ||xc||² + 2·||r||·(code_dot_c - u_hat·Q)/factor
+    (no csum: u_hat is real-valued, not ±1 bits)."""
+    return norms * norms + csq + 2.0 * norms * (code_dot_c - g * scales) / factors
+
+
+def _fused_search_ex(codes, scales, norms, factors, code_dot_c, csq, q_glob, raw, query,
+                     *, s, k, do_rerank):
+    """One pass per query over the concatenated probe set's ex-codes: one
+    codes · Q product, the estimator, then top-S shortlist → exact re-rank
+    → top-k."""
+    est = _estimate_ex(ex_dot(codes, q_glob), scales, norms, factors, code_dot_c, csq)
+    return _rerank_topk(est, raw, query, s=s, k=k, do_rerank=do_rerank)
+
+
+def fused_search_ex(codes, scales, norms, factors, code_dot_c, csq, q_glob, raw, query,
+                    *, top_k, shortlist):
+    """Host wrapper of the ex-code search (pow2 padding and pad rows as
+    :func:`fused_search`'s): (dists, indices) as numpy."""
+    n = len(codes)
+    n_pad = _pow2_bucket(n)
+    do_rerank = raw is not None
+    dists, idx = _fused_search_ex(
+        _pad_tail(codes, n_pad), _pad_tail(scales, n_pad), _pad_tail(norms, n_pad, PAD_NORM),
+        _pad_tail(factors, n_pad, PAD_FACTOR), _pad_tail(code_dot_c, n_pad),
+        _pad_tail(csq, n_pad), q_glob.contiguous(),
+        _pad_tail(raw, n_pad, PAD_RAW) if do_rerank else None, query,
+        s=min(shortlist, n_pad), k=min(top_k, n_pad), do_rerank=do_rerank,
+    )
+    return dists.cpu().numpy(), idx.cpu().numpy()
+
+
+def _fused_search_resident_ex_batch(codes, scales, norms, factors, code_dot_c, cluster_id,
+                                    probe_mask, csq_c, q_glob, raw, queries, *, s, k,
+                                    do_rerank):
+    """Batched device-resident search over ex-codes: Q queries share one
+    pass over the resident codes, EX_CHUNK rows at a time — the product,
+    the estimator and the probe mask of a chunk, written into the [Q, N]
+    estimates that the top-k reads along their last axis."""
+    n = len(codes)
+    est = torch.empty((len(q_glob), n), dtype=torch.float32, device=codes.device)
+    for lo in range(0, n, EX_CHUNK):
+        rows = slice(lo, lo + EX_CHUNK)
+        cid = cluster_id[rows]
+        e = _estimate_ex(ex_dot(codes[rows], q_glob), scales[rows, None], norms[rows, None],
+                         factors[rows, None], code_dot_c[rows, None], csq_c[cid])
+        est[:, rows] = e.masked_fill_(~probe_mask[cid], math.inf).T
+    return _batched_rerank_topk(est, raw, queries, s=s, k=k, do_rerank=do_rerank)

@@ -2,10 +2,13 @@
 the port of ``lakesoul_tpu/vector/kmeans.py``.
 
 The assignment step is one (N, D) x (D, K) matmul per row chunk; the update
-step is a segment sum by ``index_add_`` instead of the reference's one-hot
-matmul, whose [N, K] one-hot matrix is 4 GB at 1M x 1024.  The initial
-centroids are the reference's numpy draw, so one seed starts both packages
-from the same points.
+step is the reference's one-hot product, taken in the same row chunks, so
+its [N, K] one-hot matrix (4 GB at 1M x 1024) never exists whole.  Every
+sum runs in a fixed order: a matmul's for one shape, and the chunks one
+after another.  So one seed gives the same bits on every run, on the card
+too — a float ``index_add_`` adds by atomics there, in no fixed order.
+The initial centroids are the reference's numpy draw, so one seed starts
+both packages from the same points.
 """
 
 from __future__ import annotations
@@ -13,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# rows per assignment matmul: bounds the [rows, K] distance block (256 MB at
-# K = 1024) whatever N is
+# rows per chunk of the assignment and update matmuls: bounds the [rows, K]
+# distance and one-hot blocks (256 MB at K = 1024) whatever N is
 _ASSIGN_CHUNK = 65536
 
 
@@ -27,6 +30,17 @@ def _assign(x: torch.Tensor, x_sq: torch.Tensor, centroids: torch.Tensor) -> tor
         d2 = x_sq[lo:hi] - 2.0 * (x[lo:hi] @ centroids.T) + c_sq[None, :]
         out[lo:hi] = torch.argmin(d2, dim=1)
     return out
+
+
+def _segment_sums(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
+    """Σ of the rows of each cluster, [K, D]: the one-hot product
+    ``onehot.T @ x`` one row chunk at a time, chunks summed in order."""
+    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    for lo in range(0, len(x), _ASSIGN_CHUNK):
+        hi = lo + _ASSIGN_CHUNK
+        onehot = torch.nn.functional.one_hot(assign[lo:hi], k).to(x.dtype)
+        sums += onehot.T @ x[lo:hi]
+    return sums
 
 
 def kmeans(data: torch.Tensor, k: int, *, iters: int = 10, seed: int = 42):
@@ -42,11 +56,10 @@ def kmeans(data: torch.Tensor, k: int, *, iters: int = 10, seed: int = 42):
     x = data.to(torch.float32)
     centroids = x[torch.from_numpy(init_idx).to(x.device)]
     x_sq = (x * x).sum(1, keepdim=True)
-    ones = torch.ones(n, dtype=torch.float32, device=x.device)
     for _ in range(iters):
         assign = _assign(x, x_sq, centroids)
-        sums = torch.zeros_like(centroids).index_add_(0, assign, x)
-        counts = torch.zeros(k, dtype=torch.float32, device=x.device).index_add_(0, assign, ones)
-        counts = counts[:, None]
+        sums = _segment_sums(x, assign, k)
+        # integer counts: exact, whatever order they are added in
+        counts = torch.bincount(assign, minlength=k).to(torch.float32)[:, None]
         centroids = torch.where(counts > 0, sums / counts.clamp_min(1.0), centroids)
     return centroids, _assign(x, x_sq, centroids)

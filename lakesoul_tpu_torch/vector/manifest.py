@@ -4,8 +4,8 @@
 Layout as the JAX package's: a ``LATEST`` pointer →
 ``manifests/manifest-<gen>.json`` → npz segment files
 (``segments/cluster_<c>.gen<gen>[.delta_<i>].seg``, fields codes / norms /
-factors / ids / code_dot_c / raw), every blob CRC32-wrapped, so either
-package reads what the other writes.  It is the on-disk form of
+factors / ids / code_dot_c / raw, and scales for ex-codes), every blob
+CRC32-wrapped, so either package reads what the other writes.  It is the on-disk form of
 :meth:`IvfRabitqIndex.state`.  Every blob is published atomically
 (``runtime/atomicio.py``).  Object-store URIs are not supported yet."""
 
@@ -25,7 +25,7 @@ from lakesoul_tpu_torch.vector.config import VectorIndexConfig
 from lakesoul_tpu_torch.vector.index import IvfRabitqIndex
 
 LATEST = "LATEST"
-SEGMENT_FIELDS = ("codes", "norms", "factors", "ids", "code_dot_c", "raw")
+SEGMENT_FIELDS = ("codes", "norms", "factors", "ids", "code_dot_c", "raw", "scales")
 
 
 def _crc_wrap(payload: bytes) -> bytes:

@@ -11,6 +11,8 @@ At query time with rotated residual q = P(query - c):
   <r, q> ≈ norm * <o_bar, q> / factor
   ||v - query||² = norm² + ||q||² - 2<r, q>
 and <o_bar, q> needs only the {0,1} product:  b·q = 2·(bits·q) - sum(q).
+Ex-codes (``total_bits`` 2-16, :meth:`RabitqQuantizer.quantize_ex`) keep
+symmetric integer codes and a scale a row in place of the sign bits.
 
 Rotation and quantization run on the rotator's device: ``device=None``
 is the CUDA card, as at every entry point (``device.resolve_device``).  The rotator's
@@ -144,6 +146,35 @@ class RabitqQuantizer:
         c_rot = self.rotator(centroid)
         code_dot_c = (bits.to(torch.float32) * c_rot).sum(-1)
         return pack_bits(bits), norms, factors, code_dot_c
+
+    def quantize_ex(self, vectors: torch.Tensor, centroid: torch.Tensor, total_bits: int):
+        """Multi-bit quantization (``total_bits`` in [2, 16]) → (codes
+        [N, padded] int8 up to 8 bits, int16 for 9-16; scales, norms,
+        factors, code_dot_c [N] f32), on the quantizer's device.
+
+        Codes are symmetric integers in [-qmax, qmax], qmax = 2^(bits-1) - 1,
+        of the unit residual u over its largest |coordinate|; the scale folds
+        qmax in, so u_hat = codes · scales, and factor = <u_hat, u> as in the
+        1-bit path.  ``torch.round`` rounds half to even, as ``np.rint``
+        does; a rotation that differs from numpy's in its last bits may put a
+        code that sits on a .5 boundary one level apart."""
+        if not 2 <= total_bits <= 16:
+            raise VectorIndexError(f"ex-code total_bits must be in [2, 16], got {total_bits}")
+        code_dtype = torch.int8 if total_bits <= 8 else torch.int16
+        qmax = float(2 ** (total_bits - 1) - 1)
+        vectors = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+        centroid = torch.as_tensor(centroid, dtype=torch.float32, device=self.device)
+        r = self.rotator(vectors - centroid)
+        norms = torch.linalg.vector_norm(r, dim=1)
+        u = r / norms.clamp_min(1e-20)[:, None]
+        amax = u.abs().amax(dim=1).clamp_min(1e-20)
+        codes = torch.round(u / amax[:, None] * qmax).clamp_(-qmax, qmax).to(code_dtype)
+        scales = amax / qmax
+        u_hat = codes.to(torch.float32) * scales[:, None]
+        factors = (u_hat * u).sum(1)
+        factors = torch.where(factors.abs() < 1e-6, torch.ones_like(factors), factors)
+        code_dot_c = (u_hat * self.rotator(centroid)).sum(-1)
+        return codes, scales, norms, factors, code_dot_c
 
     def rotate(self, x) -> torch.Tensor:
         return self.rotator(x)

@@ -548,10 +548,16 @@ def test_entry_points_raise_without_cuda(tmp_path, port_built):
         ShardedAnnBuilder(str(tmp_path / "p"), cfg)
     with pytest.raises(ConfigError):
         AnnPlane.from_indexes(cfg, [])
+    # an ex-code plane is refused without a card too, and builds on the CPU
+    # when the caller names it
     ex = AnnPlaneConfig(index=VectorIndexConfig(column="e", dim=16, total_bits=4))
     with pytest.raises(ConfigError):
-        ShardedAnnBuilder(str(tmp_path / "ex"), ex, device=CPU).build(
-            stream(*make_corpus(n=100, d=16)[:2]))
+        ShardedAnnBuilder(str(tmp_path / "ex"), ex)
+    m = ShardedAnnBuilder(str(tmp_path / "ex"), ex, device=CPU).build(
+        stream(*make_corpus(n=100, d=16)[:2]))
+    assert m["complete"] and m["total_rows"] == 100
+    with pytest.raises(ConfigError):
+        AnnPlane.open(str(tmp_path / "ex"))
 
 
 # ------------------------------------------------------ (h) the endpoint

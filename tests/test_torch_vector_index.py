@@ -264,8 +264,20 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_ex_codes_not_ported():
-    with pytest.raises(ConfigError, match="ex-codes"):
-        IvfRabitqIndex(VectorIndexConfig("v", 16, nlist=2, total_bits=4), device="cpu")
+    """Named for the raise the port once had for ``total_bits > 1``; ex-codes
+    are ported, so it holds that an ex config trains and searches on the CPU,
+    resident and not, with int8 codes at 4 bits and int16 at 9."""
+    x, ids, q = _data(64, n=1200, centers=8, seed=8)
+    for bits, dtype in ((4, torch.int8), (9, torch.int16)):
+        idx = IvfRabitqIndex.train(x, ids, VectorIndexConfig("v", 64, nlist=8, total_bits=bits),
+                                   device="cpu")
+        assert idx.clusters[0].codes.dtype == dtype and idx.clusters[0].codes.shape[1] == 64
+        truth = exact_topk(x, ids, q[:16], 10)
+        p = SearchParams(top_k=10, nprobe=8, rerank_depth=100)
+        got = [idx.search(qi, p)[0] for qi in q[:16]]
+        assert recall_at_k(truth, got) >= 0.95
+        idx.enable_device_cache()
+        assert recall_at_k(truth, idx.batch_search(q[:16], p)[0]) >= 0.95
 
 
 def test_untrained_and_bad_shapes_raise():
