@@ -5,8 +5,9 @@
 
 Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
 serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
-plane, at 4 bits and at 1 — and fails if any phase fails.  Each phase
-prints one JSON line with its own timing:
+plane, at 4 bits and at 1 — then its three training steps (the Titanic
+MLP, ResNet-50 and BERT-base MLM), and fails if any phase fails.  Each
+phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
@@ -73,8 +74,35 @@ prints one JSON line with its own timing:
              digests (the bytes of every array of every segment), and holds
              the plane's kernel path against it opened on the CPU.  One
              plane is freed before the next is built.
+8. mlp     — BASELINE config 1: ``MLP(4, hidden=64)``, Adam 1e-2, batch 256,
+             5 epochs over the Titanic example's 2,000 synthetic rows (its
+             own copy, numpy columns), each batch standardised as the
+             example does; requires train accuracy > 0.7 (the example's
+             floor); step ms and rows/s.
+9. resnet50 — BASELINE config 2 at full width: ``ResNetConfig()`` (depth 50,
+             width 64, 1000 classes, bf16), SGD 0.05, one fixed batch of
+             256 seeded 224² images; first card = CPU on 2 images with the
+             weights carried across by ``models/convert.py``: loss and logits
+             rtol 1e-4 (logits atol 1e-4 · max |logit|) at float32 and at
+             float64, four leaves' gradients atol 1e-3 · max |g| at float64
+             and, at float32, no further from the float64 gradients than 2x
+             the CPU's own float32 gradients are (float32 cannot resolve
+             this gradient: see ``hold_card_to_cpu``), the bf16 loss within
+             2e-2 (``resnet50_hold`` line); then 3 warm-up and 20 timed
+             steps, every loss finite and the last 5 below the first 5 on
+             average; step ms (median, CUDA events), images/s, peak GB,
+             ``mfu`` (model FLOPs over the bf16 dense peak) and the 8 kernels
+             with the most device time in one profiled step.
+10. bert_base — BASELINE config 3 at full width: ``BertConfig.base()``, AdamW
+             1e-4 (weight decay 1e-4), one fixed batch of 256 × 128 (seeded
+             lengths 64-128, 15 % of the valid positions labelled and masked);
+             the same numbers as resnet50, sequences/s and tokens/s; card =
+             CPU with the gradients held at float32 (``bert_base_hold``
+             line).  No hand kernel lies on the training path: the
+             reference computes its models without Pallas, so the port
+             runs them on torch ops.
 
-Each path's kernel launch counts are set to 0 just before it is driven and
+Each ANN path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
 
 The last two lines are the kernels' JSON record and
@@ -142,6 +170,20 @@ EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", 
                  "library_device_ms", "grouping_ms", "grouping_device_ms", "estimate_ms",
                  "estimate_device_ms", "estimate_plain_ms", "estimate_bound_ms",
                  "estimate_bound_by", "estimate_probed_share", "one_bit_plane")
+# the training phases: BASELINE configs 1 (Titanic MLP), 2 (ResNet-50) and 3
+# (BERT-base MLM); no hand kernel lies on their path (the reference's models
+# have no Pallas kernel), so they add none to the kernels line
+TITANIC_ROWS, TITANIC_BATCH, TITANIC_EPOCHS, TITANIC_LR = 2000, 256, 5, 1e-2
+TITANIC_FLOOR = 0.7  # examples/titanic_mlp.py:100
+TITANIC_FEATURES = ("pclass", "age", "fare", "sex")
+RESNET_BATCH, RESNET_IMG, RESNET_LR = 256, 224, 0.05  # examples/resnet_from_table.py:73
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 256, 128, 64  # the BERT paper's phase-1 shape
+BERT_LABEL_SHARE, BERT_MASK_ID = 0.15, 3  # examples/bert_mlm_from_table.py:79-82
+WARMUP_STEPS, TIMED_STEPS, LOSS_WINDOW = 3, 20, 5
+HOLD_BATCH = 2  # card = CPU at full width on 2 examples
+HOLD_RTOL, HOLD_GRAD_ATOL, HOLD_BF16_LOSS = 1e-4, 1e-3, 2e-2
+HOLD_F32_SPREAD = 2.0  # ResNet-50's float32 gradients: the card within 2x the CPU's own error
+PROFILE_TOP = 8
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -1367,6 +1409,319 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
             "ragged_timing": ragged_timing, "top": top}
 
 
+def make_synthetic_titanic(n: int = TITANIC_ROWS, seed: int = SEED) -> dict:
+    """Synthetic passengers with a survival rule the MLP can learn: the
+    copy of ``examples/titanic_mlp.py:23-41`` that returns numpy columns,
+    not a table."""
+    rng = np.random.default_rng(seed)
+    pclass = rng.integers(1, 4, n).astype(np.int32)
+    age = np.clip(rng.normal(30, 14, n), 1, 80).astype(np.float32)
+    fare = (rng.gamma(2.0, 15.0, n) * (4 - pclass)).astype(np.float32)
+    sex = rng.integers(0, 2, n).astype(np.int32)  # 1 = female
+    logits = 1.8 * sex - 0.9 * (pclass - 2) - 0.02 * (age - 30) + 0.01 * fare
+    survived = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.int32)
+    return {"passenger_id": np.arange(n, dtype=np.int64), "pclass": pclass, "age": age,
+            "fare": fare, "sex": sex, "survived": survived}
+
+
+def titanic_features(cols: dict) -> np.ndarray:
+    """The example's transform: the feature columns, standardised over the
+    rows given (per batch in training)."""
+    x = np.stack([cols[c].astype(np.float32) for c in TITANIC_FEATURES], axis=1)
+    return (x - x.mean(0)) / (x.std(0) + 1e-6)
+
+
+def train_steps(torch, step, batch) -> dict:
+    """WARMUP_STEPS then TIMED_STEPS of ``step(*batch)`` on one fixed batch,
+    each timed steps between CUDA events.  Requires every loss finite and the
+    mean of the last LOSS_WINDOW losses below the mean of the first."""
+    losses = [step(*batch) for _ in range(WARMUP_STEPS)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        losses.append(step(*batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    losses = [float(v) for v in losses]
+    require(all(np.isfinite(losses)), f"a non-finite training loss: {losses}")
+    first, last = np.mean(losses[:LOSS_WINDOW]), np.mean(losses[-LOSS_WINDOW:])
+    require(last < first, f"the loss did not fall: first {first}, last {last}")
+    return {"step_ms": float(np.median(ms)), "step_ms_all": ms, "losses": losses,
+            "loss_first_mean": float(first), "loss_last_mean": float(last)}
+
+
+def hold_card_to_cpu(torch, M, C, model, make_cpu, run, leaves, *, f64_grads=False) -> dict:
+    """Card = CPU at full width: ``model``'s weights carried to a CPU copy
+    (``make_cpu``) through the reference's param tree, then ``run(m, dev)``
+    → (loss, logits) on both.  float32: loss and logits rtol HOLD_RTOL
+    (logits atol HOLD_RTOL · max |logit|), the gradients of ``leaves`` atol
+    HOLD_GRAD_ATOL · max |g|; bf16: the loss within HOLD_BF16_LOSS relative.
+    The card's float32 and bf16 model is ``model`` itself, its compute dtype
+    switched for the check and restored.
+
+    ``f64_grads`` (ResNet-50): a randomly initialised 50-layer net with batch
+    statistics on 2 images has a float32 gradient that float32 cannot
+    resolve — the CPU's own float32 gradients lie up to ~20 % from their
+    float64 values, and a 1-ulp change of the input moves them as much.  So
+    the gradients are held card = CPU at float64 instead (both models
+    converted; the same atol), and at float32 the card's distance from the
+    float64 gradient must be at most HOLD_F32_SPREAD × the CPU's own (or
+    HOLD_GRAD_ATOL, if larger)."""
+    import dataclasses
+
+    sd = C.from_reference_params(C.to_reference_params(model))
+    cpu = make_cpu()
+    cpu.load_state_dict(sd)
+    train_cfg, got = model.cfg, {}
+    sides = [("float32", "card", DEVICE, model), ("float32", "cpu", "cpu", cpu),
+             ("bfloat16", "card", DEVICE, model), ("bfloat16", "cpu", "cpu", cpu)]
+    if f64_grads:
+        card64, cpu64 = make_cpu().double(), make_cpu().double()
+        card64.load_state_dict(sd)
+        cpu64.load_state_dict(sd)
+        sides += [("float64", "card", DEVICE, card64.to(DEVICE)), ("float64", "cpu", "cpu", cpu64)]
+    try:
+        for dtype, side, dev, m in sides:
+            m.cfg = dataclasses.replace(train_cfg, dtype=dtype)
+            m.zero_grad(set_to_none=True)
+            t = time.perf_counter()
+            loss, logits = run(m, dev)
+            grads = {}
+            if dtype != "bfloat16":
+                loss.backward()
+                named = dict(m.named_parameters())
+                grads = {k: named[k].grad.detach().double().cpu() for k in leaves}
+            got[dtype, side] = (loss.item(), logits.detach().double().cpu(), grads,
+                                time.perf_counter() - t)
+            m.zero_grad(set_to_none=True)
+    finally:
+        model.cfg = train_cfg
+        model.zero_grad(set_to_none=True)
+
+    def rel(a, b):  # max |a - b| over max |b|, per leaf
+        return {k: ((a[k] - b[k]).abs().max() / b[k].abs().max()).item() for k in leaves}
+
+    out, ok = {}, {}
+    for dtype in ("float32", "bfloat16", "float64")[:3 if f64_grads else 2]:
+        (lc, xc, gc, tc), (lp, xp, gp, tp) = got[dtype, "card"], got[dtype, "cpu"]
+        rec = {"loss_card": lc, "loss_cpu": lp, "loss_rel_err": abs(lc - lp) / abs(lp),
+               "card_s": tc, "cpu_s": tp}
+        if dtype == "bfloat16":
+            ok["bfloat16_loss"] = rec["loss_rel_err"] <= HOLD_BF16_LOSS
+        else:
+            err = (xc - xp).abs()
+            rec["logits_max_abs_err"] = err.max().item()
+            rec["logits_err_over_tol"] = (err / (HOLD_RTOL * (xp.abs() + xp.abs().max()))
+                                          ).max().item()
+            rec["grad_err_over_max"] = rel(gc, gp)
+            ok[f"{dtype}_loss"] = rec["loss_rel_err"] <= HOLD_RTOL
+            ok[f"{dtype}_logits"] = rec["logits_err_over_tol"] <= 1.0
+        out[dtype] = rec
+    f32 = out["float32"]
+    if f64_grads:
+        truth = got["float64", "cpu"][2]
+        f32["card_grad_from_f64"] = rel(got["float32", "card"][2], truth)
+        f32["cpu_grad_from_f64"] = rel(got["float32", "cpu"][2], truth)
+        ok["float32_grads_within_cpu_spread"] = all(
+            f32["card_grad_from_f64"][k] <= max(HOLD_GRAD_ATOL,
+                                                HOLD_F32_SPREAD * f32["cpu_grad_from_f64"][k])
+            for k in leaves)
+        ok["float64_grads"] = all(v <= HOLD_GRAD_ATOL
+                                  for v in out["float64"]["grad_err_over_max"].values())
+    else:
+        ok["float32_grads"] = all(v <= HOLD_GRAD_ATOL for v in f32["grad_err_over_max"].values())
+    out["held"] = {"loss_rtol": HOLD_RTOL, "logits_rtol": HOLD_RTOL,
+                   "logits_atol_of_max": HOLD_RTOL, "grad_atol_of_max": HOLD_GRAD_ATOL,
+                   "grads_at": "float64" if f64_grads else "float32",
+                   "bfloat16_loss_rel": HOLD_BF16_LOSS}
+    if f64_grads:
+        out["held"]["float32_grads_within_cpu_spread_x"] = HOLD_F32_SPREAD
+    out["ok"] = ok
+    return out
+
+
+def resnet_flops(model, img: int) -> float:
+    """Model FLOPs of one training step per image: 2 × the multiply-adds of
+    every conv and of the head, from the model's own weight shapes and the
+    SAME output sizes (ceil(in / stride)), × 3 for forward and backward."""
+    def conv_macs(w, size):
+        return size * size * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3]
+
+    size = -(-img // 2)
+    macs = conv_macs(model.stem.conv, size)
+    size = -(-size // 2)  # the max-pool
+    for stage, blocks in enumerate(model.stages):
+        for b, blk in enumerate(blocks):
+            out = -(-size // (2 if stage > 0 and b == 0 else 1))
+            macs += conv_macs(blk.conv1, size) + conv_macs(blk.conv2, out) + conv_macs(blk.conv3, out)
+            if hasattr(blk, "proj"):
+                macs += conv_macs(blk.proj, out)
+            size = out
+    macs += model.head.w.numel()
+    return 3 * 2.0 * macs
+
+
+def bert_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 × the encoder's matmul params ×
+    tokens, + 12 · T · h · L a token for the attention's QKᵀ and PV
+    (2 · T · h each, forward; × 3 with the backward), + 6 × the tied head's
+    V · h × tokens (padded positions count: the step computes them)."""
+    h, f, L = cfg.hidden, cfg.ff, cfg.layers
+    return tokens * (6.0 * L * (4 * h * h + 2 * h * f) + 12.0 * seq * h * L
+                     + 6.0 * cfg.vocab_size * h)
+
+
+def phase_mlp(torch, M, kind: str) -> dict:
+    """BASELINE config 1 (Titanic): ``MLP(4, hidden=64)`` and Adam 1e-2,
+    batch 256, 5 epochs over the example's 2,000 synthetic rows, each batch
+    standardised on the host as the example's transform does; train
+    accuracy must pass the example's floor 0.7.  Step ms: CUDA events
+    around each step (host-to-device copy included)."""
+    data = make_synthetic_titanic()
+    model = M.MLP(len(TITANIC_FEATURES), hidden=64, seed=SEED, device=DEVICE)
+    step = M.make_mlp_train_step(model, M.adam(model.parameters(), TITANIC_LR), device=DEVICE)
+    events, losses = [], []
+    t = time.perf_counter()
+    for _ in range(TITANIC_EPOCHS):
+        for lo in range(0, TITANIC_ROWS, TITANIC_BATCH):
+            cols = {c: v[lo:lo + TITANIC_BATCH] for c, v in data.items()}
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            losses.append(step(titanic_features(cols), cols["survived"]))
+            pair[1].record()
+            events.append(pair)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(v) for v in losses]
+    require(all(np.isfinite(losses)), "a non-finite MLP loss")
+    with torch.no_grad():
+        logits = model(torch.from_numpy(titanic_features(data)).to(DEVICE))
+    acc = float((logits.argmax(1).cpu().numpy() == data["survived"]).mean())
+    require(acc > TITANIC_FLOOR, f"the MLP's train accuracy {acc} is not above {TITANIC_FLOOR}")
+    rec = {"config": "BASELINE config 1 (Titanic MLP)", "device_kind": kind,
+           "rows": TITANIC_ROWS, "batch": TITANIC_BATCH, "epochs": TITANIC_EPOCHS,
+           "steps": len(ms), "step_ms": float(np.median(ms)),
+           "rows_per_s": TITANIC_ROWS * TITANIC_EPOCHS / wall, "wall_s": wall,
+           "accuracy": acc, "accuracy_floor": TITANIC_FLOOR,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "reduced": {"rows": "from numpy in row order, not scanned from a hash-partitioned "
+                               "table (the table feed waits for the storage core)"}}
+    emit("mlp", **rec)
+    return rec
+
+
+def phase_resnet50(torch, M, C, kind: str) -> dict:
+    """BASELINE config 2: ``ResNet(ResNetConfig())`` (depth 50, width 64,
+    1000 classes, bf16), SGD 0.05, one fixed batch of 256 seeded normal
+    224² images with labels in [0, 1000); card = CPU first (see
+    ``hold_card_to_cpu``; leaves: stem conv, the first block's conv2, the
+    last stage's proj, the head).  mfu: ``resnet_flops`` × batch over the
+    median step time, over the bf16 dense peak (989 TFLOP/s)."""
+    import torch.nn.functional as F
+
+    model = M.ResNet(M.ResNetConfig(), seed=SEED, device=DEVICE)
+    g = torch.Generator().manual_seed(SEED + 1)
+    hx = torch.randn(HOLD_BATCH, RESNET_IMG, RESNET_IMG, 3, generator=g)
+    hy = torch.randint(0, model.cfg.num_classes, (HOLD_BATCH,), generator=g)
+
+    def run(m, dev):
+        logits = M.resnet_forward(m, hx.to(dev))
+        return F.cross_entropy(logits, hy.to(dev)), logits
+
+    hold = hold_card_to_cpu(
+        torch, M, C, model, lambda: M.ResNet(model.cfg, device="cpu"), run,
+        ("stem.conv", "stages.0.0.conv2", f"stages.{len(model.stages) - 1}.0.proj", "head.w"),
+        f64_grads=True)
+    emit("resnet50_hold", **hold)
+    require(all(hold["ok"].values()), f"ResNet-50 on the card != on the CPU: {hold['ok']}")
+
+    gd = torch.Generator(device=DEVICE).manual_seed(SEED)
+    images = torch.randn(RESNET_BATCH, RESNET_IMG, RESNET_IMG, 3, device=DEVICE, generator=gd)
+    labels = torch.randint(0, model.cfg.num_classes, (RESNET_BATCH,), device=DEVICE, generator=gd)
+    step = M.make_resnet_train_step(model, M.sgd(model.parameters(), RESNET_LR), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    run_rec = train_steps(torch, step, (images, labels))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile(torch, lambda: step(images, labels))
+    flops = resnet_flops(model, RESNET_IMG) * RESNET_BATCH
+    sec = run_rec["step_ms"] / 1e3
+    rec = {"config": "BASELINE config 2 (ResNet-50, ImageNet shapes)", "device_kind": kind,
+           "batch": RESNET_BATCH, "image": RESNET_IMG, "dtype": model.cfg.dtype,
+           "optimizer": f"sgd {RESNET_LR}", "warmup_steps": WARMUP_STEPS,
+           "timed_steps": TIMED_STEPS, **run_rec, "images_per_s": RESNET_BATCH / sec,
+           "peak_gb": peak, "model_flop_per_step": flops,
+           "mfu": flops / sec / PEAK_BF16_FLOP_S, "mfu_peak_flop_s": PEAK_BF16_FLOP_S,
+           "profile": {**prof, "top": prof["top"][:PROFILE_TOP]},
+           "held": hold["held"],
+           "reduced": {"data": "one fixed batch of seeded normal images, not decoded from an "
+                               "ImageNet table (the loader waits for the storage core)"}}
+    emit("resnet50", **rec)
+    return rec
+
+
+def bert_batch(torch, gen, n: int, vocab: int, dev):
+    """n × BERT_SEQ seeded token ids; each row a seeded length in
+    [BERT_MIN_LEN, BERT_SEQ], the mask False past it; BERT_LABEL_SHARE of the
+    valid positions labelled with their token and replaced by [MASK] in the
+    input, the rest of the labels -100."""
+    ids = torch.randint(4, vocab, (n, BERT_SEQ), generator=gen)
+    lengths = torch.randint(BERT_MIN_LEN, BERT_SEQ + 1, (n,), generator=gen)
+    mask = torch.arange(BERT_SEQ)[None, :] < lengths[:, None]
+    picked = mask & (torch.rand(n, BERT_SEQ, generator=gen) < BERT_LABEL_SHARE)
+    labels = torch.where(picked, ids, -100)
+    ids = torch.where(picked, BERT_MASK_ID, ids)
+    return ids.to(dev), labels.to(dev), mask.to(dev)
+
+
+def phase_bert_base(torch, M, C, kind: str) -> dict:
+    """BASELINE config 3: ``BertConfig.base()`` (30,522 × 768, 12 layers, 12
+    heads, ff 3072, bf16) through ``make_bert_train_state`` (AdamW 1e-4,
+    weight decay 1e-4) and ``make_bert_train_step``, one fixed batch of
+    256 × 128 (``bert_batch``); card = CPU first (leaves: tok_emb, layer
+    0's wq, layer 11's w2, mlm_bias).  mfu: ``bert_flops`` over the median
+    step time, over the bf16 dense peak (989 TFLOP/s)."""
+    model, opt = M.make_bert_train_state(M.BertConfig.base(), seed=SEED, device=DEVICE)
+    hid, hlab, hmask = bert_batch(torch, torch.Generator().manual_seed(SEED + 1), HOLD_BATCH,
+                                  model.cfg.vocab_size, "cpu")
+
+    def run(m, dev):
+        logits = M.bert_forward(m, hid.to(dev), hmask.to(dev))
+        return M.masked_nll(logits, hlab.to(dev)), logits
+
+    last = len(model.layers) - 1
+    hold = hold_card_to_cpu(
+        torch, M, C, model, lambda: M.Bert(model.cfg, device="cpu"), run,
+        ("tok_emb", "layers.0.wq", f"layers.{last}.w2", "mlm_bias"))
+    emit("bert_base_hold", **hold)
+    require(all(hold["ok"].values()), f"BERT-base on the card != on the CPU: {hold['ok']}")
+
+    ids, labels, mask = bert_batch(torch, torch.Generator().manual_seed(SEED), BERT_BATCH,
+                                   model.cfg.vocab_size, DEVICE)
+    step = M.make_bert_train_step(model, opt, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    run_rec = train_steps(torch, step, (ids, labels, mask))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile(torch, lambda: step(ids, labels, mask))
+    tokens = BERT_BATCH * BERT_SEQ
+    flops = bert_flops(model.cfg, tokens, BERT_SEQ)
+    sec = run_rec["step_ms"] / 1e3
+    rec = {"config": "BASELINE config 3 (BERT-base MLM)", "device_kind": kind,
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "dtype": model.cfg.dtype,
+           "optimizer": "adamw 1e-4, weight decay 1e-4", "warmup_steps": WARMUP_STEPS,
+           "timed_steps": TIMED_STEPS, **run_rec, "sequences_per_s": BERT_BATCH / sec,
+           "tokens_per_s": tokens / sec, "valid_tokens": int(mask.sum()),
+           "labelled_tokens": int((labels >= 0).sum()), "peak_gb": peak,
+           "model_flop_per_step": flops, "mfu": flops / sec / PEAK_BF16_FLOP_S,
+           "mfu_peak_flop_s": PEAK_BF16_FLOP_S,
+           "profile": {**prof, "top": prof["top"][:PROFILE_TOP]}, "held": hold["held"],
+           "reduced": {"data": "one fixed batch of seeded token ids, not C4 tokenised from a "
+                               "table (the loader waits for the storage core)"}}
+    emit("bert_base", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1409,6 +1764,18 @@ def main() -> int:
         planes[bits] = phase_plane(torch, K, R, x, queries, bits, top)
         top = planes[bits]["top"]
         torch.cuda.empty_cache()
+    del x, queries
+    torch.cuda.empty_cache()
+
+    # 8-10. the training steps (no hand kernel on their path)
+    from lakesoul_tpu_torch import models as M
+    from lakesoul_tpu_torch.models import convert as C
+
+    phase_mlp(torch, M, kind)
+    phase_resnet50(torch, M, C, kind)
+    torch.cuda.empty_cache()
+    phase_bert_base(torch, M, C, kind)
+    torch.cuda.empty_cache()
 
     # ragged_score's record: the scale leg's 4-bit plane, the 1-bit plane's beside it
     timings = {**kernels["timings"], "packed_scan": sl["packed_scan_timing"],

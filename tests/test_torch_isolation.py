@@ -4,7 +4,8 @@
 Two checks: a static scan of every import statement, and a subprocess in
 which a meta-path finder makes ``jax``, ``jaxlib`` and ``lakesoul_tpu``
 unimportable while every port module is imported, a tiny index is built
-and searched on the CPU, and so is a tiny two-shard ANN plane.  It has to be a subprocess: ``tests/conftest.py``
+and searched on the CPU, and so is a tiny two-shard ANN plane, and the MLP,
+ResNet and BERT each take one tiny train step.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -94,8 +95,23 @@ _CHILD = textwrap.dedent(
     ids_p, _ = plane.batch_search(x[[7, 250, 399]], SearchParams(top_k=1, nprobe=8,
                                                                  rerank_depth=200))
     assert [int(i[0]) for i in ids_p] == [7, 250, 399], ids_p
+    from lakesoul_tpu_torch.models import (MLP, Bert, BertConfig, ResNet, ResNetConfig, adam,
+                                           make_bert_train_state, make_bert_train_step,
+                                           make_mlp_train_step, make_resnet_train_step, sgd)
+    mlp = MLP(4, hidden=8, device="cpu")
+    losses = [make_mlp_train_step(mlp, adam(mlp.parameters(), 1e-2), device="cpu")(
+        rng.normal(size=(16, 4)).astype(np.float32), rng.integers(0, 2, 16))]
+    rn = ResNet(ResNetConfig(num_classes=10, width=8), device="cpu")
+    losses.append(make_resnet_train_step(rn, sgd(rn.parameters(), 0.05), device="cpu")(
+        rng.normal(size=(2, 32, 32, 3)).astype(np.float32), np.array([1, 2])))
+    bert, opt = make_bert_train_state(BertConfig.tiny(), device="cpu")
+    ids = rng.integers(0, 1024, size=(2, 16))
+    losses.append(make_bert_train_step(bert, opt, device="cpu")(
+        ids, np.where(rng.random((2, 16)) < 0.3, ids, -100), np.ones((2, 16), bool)))
+    assert all(bool(torch.isfinite(l)) for l in losses), losses
     if not torch.cuda.is_available():
-        for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root)):
+        for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root),
+                     lambda: MLP(4), lambda: Bert(BertConfig.tiny())):
             try:
                 make()
             except ConfigError:
