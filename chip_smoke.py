@@ -6,8 +6,9 @@
 Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
 serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
 plane, at 4 bits and at 1 — then its three training steps (the Titanic
-MLP, ResNet-50 and BERT-base MLM), and fails if any phase fails.  Each
-phase prints one JSON line with its own timing:
+MLP, read from a table, ResNet-50 and BERT-base MLM), then the table →
+train-step loader on a 20M-row table beside a stock DataLoader, and fails
+if any phase fails.  Each phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
@@ -74,10 +75,14 @@ phase prints one JSON line with its own timing:
              digests (the bytes of every array of every segment), and holds
              the plane's kernel path against it opened on the CPU.  One
              plane is freed before the next is built.
-8. mlp     — BASELINE config 1: ``MLP(4, hidden=64)``, Adam 1e-2, batch 256,
-             5 epochs over the Titanic example's 2,000 synthetic rows (its
-             own copy, numpy columns), each batch standardised as the
-             example does; requires train accuracy > 0.7 (the example's
+8. mlp     — BASELINE config 1 as ``examples/titanic_mlp.py`` runs it: the
+             example's 2,000 synthetic rows (its own copy) written to a
+             ``hash_bucket_num=4`` table keyed by ``passenger_id``, an
+             upsert of the first 200 (merge-on-read), then 5 epochs of
+             ``scan().batch_size(256).auto_shard().to_torch_iter(transform=
+             ...)`` into ``MLP(4, hidden=64)`` with Adam 1e-2, each batch
+             standardised as the example does; requires every row
+             delivered each epoch and train accuracy > 0.7 (the example's
              floor); step ms and rows/s.
 9. resnet50 — BASELINE config 2 at full width: ``ResNetConfig()`` (depth 50,
              width 64, 1000 classes, bf16), SGD 0.05, one fixed batch of
@@ -101,6 +106,26 @@ phase prints one JSON line with its own timing:
              line).  No hand kernel lies on the training path: the
              reference computes its models without Pallas, so the port
              runs them on torch ops.
+11. loader — ``bench.py``'s headline train leg on the card: its 20,000,000-row
+             table (``id``, ``f0..f15`` float32, ``label``; 500k-row chunks
+             from seed 0, ``hash_bucket_num=8``, LSF, one 5 % upsert wave
+             from seed 1, so the scan merges on read), read by
+             ``to_torch_iter(transform=..., io_threads=2)`` in batches of
+             524,288 rows, each a ``[16, B]`` float32 array, into one
+             ``MLP(16, hidden=256)`` Adam 1e-3 step a batch (transposed on
+             the card); one untimed epoch, then the best of 2.  Beside it
+             the comparator ``bench.py`` names: the same rows as parquet
+             (zstd 1, no dictionary) through ``pyarrow.dataset`` and a
+             stock ``DataLoader`` (``pin_memory``, spawned workers, 2 and
+             0, best of) into the same step from the same weights.
+             Requires every row delivered each epoch (= ``count_rows``),
+             the native merge library loaded, and the card's batches of
+             one hash bucket (``shard(0, 8)``, no transform), copied back,
+             byte-equal to the same scan delivered to the CPU (with the
+             reuse ring armed too).  Reports both rows/s and their ratio,
+             the step's device ms, the device's busy share over 8 batches,
+             the scan's stage sums over a timed epoch, peak pinned and
+             device bytes, and the host's CPU count and model.
 
 Each ANN path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
@@ -174,6 +199,7 @@ EXTRA_TIMINGS = ("probed_share", "tensor_core_flop", "bound_ms_f32_cuda_cores", 
 # (BERT-base MLM); no hand kernel lies on their path (the reference's models
 # have no Pallas kernel), so they add none to the kernels line
 TITANIC_ROWS, TITANIC_BATCH, TITANIC_EPOCHS, TITANIC_LR = 2000, 256, 5, 1e-2
+TITANIC_UPSERT, TITANIC_BUCKETS = 200, 4  # examples/titanic_mlp.py:64-70
 TITANIC_FLOOR = 0.7  # examples/titanic_mlp.py:100
 TITANIC_FEATURES = ("pclass", "age", "fare", "sex")
 RESNET_BATCH, RESNET_IMG, RESNET_LR = 256, 224, 0.05  # examples/resnet_from_table.py:73
@@ -184,6 +210,14 @@ HOLD_BATCH = 2  # card = CPU at full width on 2 examples
 HOLD_RTOL, HOLD_GRAD_ATOL, HOLD_BF16_LOSS = 1e-4, 1e-3, 2e-2
 HOLD_F32_SPREAD = 2.0  # ResNet-50's float32 gradients: the card within 2x the CPU's own error
 PROFILE_TOP = 8
+# the loader phase: bench.py's table (bench.py:82-93, 174-242) and train leg
+# (bench.py:374-423), its DataLoader comparator (bench.py:343-361, 557-);
+# the storage core and the loader are host code: no hand kernel on the path
+LOADER_ROWS, LOADER_CHUNK, LOADER_BUCKETS, LOADER_FEATURES = 20_000_000, 500_000, 8, 16
+LOADER_UPSERT_FRAC, LOADER_UPSERT_CHUNK = 0.05, 2_000_000
+LOADER_BATCH, LOADER_HIDDEN, LOADER_LR, LOADER_IO_THREADS = 524_288, 256, 1e-3, 2
+LOADER_TIMED_EPOCHS, LOADER_PROFILE_BATCHES, LOADER_STEP_ITERS = 2, 8, 20
+LOADER_WORKERS = (2, 0)  # the DataLoader comparator's num_workers, best of
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -1572,27 +1606,54 @@ def bert_flops(cfg, tokens: int, seq: int) -> float:
                      + 6.0 * cfg.vocab_size * h)
 
 
-def phase_mlp(torch, M, kind: str) -> dict:
-    """BASELINE config 1 (Titanic): ``MLP(4, hidden=64)`` and Adam 1e-2,
-    batch 256, 5 epochs over the example's 2,000 synthetic rows, each batch
-    standardised on the host as the example's transform does; train
-    accuracy must pass the example's floor 0.7.  Step ms: CUDA events
-    around each step (host-to-device copy included)."""
+def phase_mlp(torch, M, L, kind: str) -> dict:
+    """BASELINE config 1 (Titanic) as the example runs it: the 2,000
+    synthetic rows written to a hash-partitioned primary-key table and
+    upserted (merge-on-read), then ``MLP(4, hidden=64)`` and Adam 1e-2,
+    batch 256, 5 epochs of ``to_torch_iter`` over the table, each batch
+    standardised on the host as the example's transform does; every row must
+    arrive each epoch and train accuracy pass the example's floor 0.7.  Step
+    ms: CUDA events around each step; rows/s: rows delivered over the
+    epochs' wall time."""
+    import pyarrow as pa
+
     data = make_synthetic_titanic()
-    model = M.MLP(len(TITANIC_FEATURES), hidden=64, seed=SEED, device=DEVICE)
-    step = M.make_mlp_train_step(model, M.adam(model.parameters(), TITANIC_LR), device=DEVICE)
-    events, losses = [], []
-    t = time.perf_counter()
-    for _ in range(TITANIC_EPOCHS):
-        for lo in range(0, TITANIC_ROWS, TITANIC_BATCH):
-            cols = {c: v[lo:lo + TITANIC_BATCH] for c, v in data.items()}
-            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            pair[0].record()
-            losses.append(step(titanic_features(cols), cols["survived"]))
-            pair[1].record()
-            events.append(pair)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    wh = tempfile.mkdtemp(prefix="chip_smoke_titanic_")
+    try:
+        table = pa.table(data)
+        t = L.LakeSoulCatalog(wh).create_table(
+            "titanic", table.schema, primary_keys=["passenger_id"],
+            hash_bucket_num=TITANIC_BUCKETS)
+        t.write_arrow(table)
+        t.upsert(table.slice(0, TITANIC_UPSERT))  # a correction wave: merge-on-read
+
+        def transform(b):
+            return {"x": titanic_features(b), "y": b["survived"].astype(np.int32)}
+
+        model = M.MLP(len(TITANIC_FEATURES), hidden=64, seed=SEED, device=DEVICE)
+        step = M.make_mlp_train_step(model, M.adam(model.parameters(), TITANIC_LR),
+                                     device=DEVICE)
+        events, losses, epoch_rows, epoch_s = [], [], [], []
+        t0 = time.perf_counter()
+        for _ in range(TITANIC_EPOCHS):
+            rows, te = 0, time.perf_counter()
+            for b in t.scan().batch_size(TITANIC_BATCH).auto_shard().to_torch_iter(
+                    transform=transform, drop_remainder=False, device=DEVICE):
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                losses.append(step(b["x"], b["y"]))
+                pair[1].record()
+                events.append(pair)
+                rows += int(b["y"].shape[0])
+            epoch_rows.append(rows)
+            epoch_s.append(time.perf_counter() - te)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(wh, ignore_errors=True)
+    require(epoch_rows == [TITANIC_ROWS] * TITANIC_EPOCHS,
+            f"the Titanic table delivered {epoch_rows} rows a epoch, not {TITANIC_ROWS}")
     ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(v) for v in losses]
     require(all(np.isfinite(losses)), "a non-finite MLP loss")
@@ -1602,12 +1663,13 @@ def phase_mlp(torch, M, kind: str) -> dict:
     require(acc > TITANIC_FLOOR, f"the MLP's train accuracy {acc} is not above {TITANIC_FLOOR}")
     rec = {"config": "BASELINE config 1 (Titanic MLP)", "device_kind": kind,
            "rows": TITANIC_ROWS, "batch": TITANIC_BATCH, "epochs": TITANIC_EPOCHS,
-           "steps": len(ms), "step_ms": float(np.median(ms)),
-           "rows_per_s": TITANIC_ROWS * TITANIC_EPOCHS / wall, "wall_s": wall,
+           "table": {"hash_bucket_num": TITANIC_BUCKETS, "primary_key": "passenger_id",
+                     "upserted_rows": TITANIC_UPSERT},
+           "epoch_rows": epoch_rows, "epoch_s": epoch_s, "steps": len(ms),
+           "step_ms": float(np.median(ms)),
+           "rows_per_s": sum(epoch_rows) / wall, "wall_s": wall,
            "accuracy": acc, "accuracy_floor": TITANIC_FLOOR,
-           "loss_first": losses[0], "loss_last": losses[-1],
-           "reduced": {"rows": "from numpy in row order, not scanned from a hash-partitioned "
-                               "table (the table feed waits for the storage core)"}}
+           "loss_first": losses[0], "loss_last": losses[-1]}
     emit("mlp", **rec)
     return rec
 
@@ -1722,6 +1784,313 @@ def phase_bert_base(torch, M, C, kind: str) -> dict:
     return rec
 
 
+def loader_schema():
+    import pyarrow as pa
+
+    fields = [("id", pa.int64())] + [(f"f{i}", pa.float32()) for i in range(LOADER_FEATURES)]
+    return pa.schema(fields + [("label", pa.int32())])
+
+
+def loader_chunks(n_rows: int, chunk: int = LOADER_CHUNK, seed: int = SEED):
+    """``bench.py``'s rows (its ``_chunks``, bench.py:180-188, as this
+    script's own copy): ``chunk``-row tables from one seeded generator."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    for start in range(0, n_rows, chunk):
+        n = min(chunk, n_rows - start)
+        cols = {"id": np.arange(start, start + n, dtype=np.int64)}
+        for i in range(LOADER_FEATURES):
+            cols[f"f{i}"] = rng.normal(size=n).astype(np.float32)
+        cols["label"] = rng.integers(0, 2, n).astype(np.int32)
+        yield pa.table(cols, schema=loader_schema())
+
+
+def loader_upsert_wave(t, seed: int, n_rows: int) -> int:
+    """``bench.py``'s ``_upsert_wave`` (bench.py:191-222, this script's own
+    copy): re-write LOADER_UPSERT_FRAC of the keys, sampled without
+    replacement from disjoint id ranges, in chunks.  Returns the rows
+    upserted."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    n_up = int(n_rows * LOADER_UPSERT_FRAC)
+    n_chunks = max(1, -(-n_up // LOADER_UPSERT_CHUNK))
+    span = n_rows // n_chunks
+
+    def sample(n, k):
+        out = np.unique(rng.integers(0, n, int(k * 1.1) + 16, dtype=np.int64))
+        while out.size < k:
+            out = np.unique(np.concatenate([out, rng.integers(0, n, k, dtype=np.int64)]))
+        rng.shuffle(out)
+        return out[:k]
+
+    for c in range(n_chunks):
+        take = min(LOADER_UPSERT_CHUNK, n_up - c * LOADER_UPSERT_CHUNK)
+        lo = c * span
+        piece = lo + sample(min(span, n_rows - lo), take)
+        cols = {"id": piece}
+        for i in range(LOADER_FEATURES):
+            cols[f"f{i}"] = rng.normal(size=len(piece)).astype(np.float32)
+        cols["label"] = rng.integers(0, 2, len(piece)).astype(np.int32)
+        t.upsert(pa.table(cols, schema=loader_schema()))
+    return n_up
+
+
+def loader_transform(b: dict) -> dict:
+    """``bench.py``'s ``col_transform`` (bench.py:417-423): the feature
+    columns concatenated into one ``[F, B]`` array, a straight memcpy.  Two
+    differences: float32 (numpy has no bfloat16 without ml_dtypes; cast on
+    the card if wanted) and no trim to a step multiple (a batch is one step
+    here, so every delivered row is trained on); labels ride as int8."""
+    x = np.concatenate([b[f"f{i}"] for i in range(LOADER_FEATURES)])
+    return {"x": x.reshape(LOADER_FEATURES, -1), "y": b["label"].astype(np.int8)}
+
+
+class ParquetFiles:
+    """The comparator's dataset (``bench.py``'s ``bench_torch_baseline_e2e``
+    in its PyTorch form): a stock map-style dataset, one parquet file (one
+    500k-row row group, so one batch, as ``to_batches(batch_size=B)`` gives
+    there) an item, read through ``pyarrow.dataset``.  Module-level, so that
+    spawned DataLoader workers unpickle it."""
+
+    def __init__(self, files):
+        self.files = list(files)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, i: int):
+        import pyarrow.dataset as pads
+
+        return pads.dataset(self.files[i], format="parquet").to_table()
+
+
+def stack_collate(items):
+    """The comparator's collate (bench.py:590-597): ``[B, F]`` float32 by
+    ``np.stack`` and int32 labels, as torch tensors."""
+    import torch
+
+    t = items[0]
+    x = np.stack([t.column(f"f{i}").to_numpy() for i in range(LOADER_FEATURES)], axis=1)
+    y = t.column("label").to_numpy().astype(np.int32)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def host_info() -> dict:
+    """The host a loader's rows/s mostly measures: CPU count and model (the
+    first processor's ``/proc/cpuinfo`` fields, which a sandbox may blank)."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break
+                key, _, val = ln.partition(":")
+                fields[key.strip()] = val.strip()
+    except OSError:
+        pass
+    return {"cpu_count": os.cpu_count(), "cpu_model": fields.get("model name"),
+            "cpu_vendor": fields.get("vendor_id"), "cpu_family": fields.get("cpu family"),
+            "cpu_model_number": fields.get("model"), "machine": platform.machine()}
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def batches_sha(batches, to_host) -> tuple[str, int]:
+    """sha256 over every batch's columns (name, then bytes, in name order)
+    and the rows seen."""
+    h, rows = hashlib.sha256(), 0
+    for b in batches:
+        for name in sorted(b):
+            h.update(name.encode())
+            h.update(to_host(b[name]).tobytes())
+        rows += int(b["id"].shape[0])
+    return h.hexdigest(), rows
+
+
+def pinned_stats(torch) -> dict:
+    """PyTorch's caching host allocator's byte counters (pinned memory), as
+    far as this torch exposes them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {"note": "torch.cuda.host_memory_stats is absent in this torch"}
+    return {k: v for k, v in stats().items() if "bytes" in k}
+
+
+def phase_loader(torch, M, L, kind: str) -> dict:
+    """``bench.py``'s train leg on the card and its DataLoader comparator
+    (see the module docstring, phase 11).  The table and the parquet copy
+    live in a temp dir, removed after the phase."""
+    from lakesoul_tpu_torch import native
+    from lakesoul_tpu_torch.obs.stages import stage_seconds
+
+    require(native.available(), "the port's native merge library did not load")
+    root = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    try:
+        # the table: bench.py's build_table (bench.py:225-242)
+        t0 = time.perf_counter()
+        t = L.LakeSoulCatalog(os.path.join(root, "wh")).create_table(
+            "bench", loader_schema(), primary_keys=["id"], hash_bucket_num=LOADER_BUCKETS,
+            properties={"lakesoul.file_format": "lsf"})
+        for chunk in loader_chunks(LOADER_ROWS):
+            t.write_arrow(chunk)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        upserted = loader_upsert_wave(t, SEED + 1, LOADER_ROWS)
+        upsert_s = time.perf_counter() - t0
+        table_bytes = dir_bytes(os.path.join(root, "wh"))
+        # the comparator's parquet copy of the same rows (bench.py:343-361)
+        import pyarrow.parquet as pq
+
+        t0 = time.perf_counter()
+        pq_dir = os.path.join(root, "parquet")
+        os.makedirs(pq_dir)
+        files = []
+        for i, chunk in enumerate(loader_chunks(LOADER_ROWS)):
+            files.append(os.path.join(pq_dir, f"part-{i:05d}.parquet"))
+            pq.write_table(chunk, files[-1], compression="zstd", compression_level=1,
+                           use_dictionary=False)
+        parquet_s = time.perf_counter() - t0
+        parquet_bytes = dir_bytes(pq_dir)
+        count = t.scan().count_rows()
+        require(count == LOADER_ROWS, f"count_rows {count} != the {LOADER_ROWS} rows written")
+
+        def make_step():
+            # one fresh model and optimizer a leg: every leg starts from the
+            # same weights (seed SEED)
+            model = M.MLP(LOADER_FEATURES, hidden=LOADER_HIDDEN, seed=SEED, device=DEVICE)
+            return M.make_mlp_train_step(model, M.adam(model.parameters(), LOADER_LR),
+                                         device=DEVICE)
+
+        def port_iter():
+            return t.scan().batch_size(LOADER_BATCH).to_torch_iter(
+                transform=loader_transform, io_threads=LOADER_IO_THREADS,
+                drop_remainder=False, device=DEVICE)
+
+        # the port's feed: one untimed epoch, then the best of the timed ones
+        step = make_step()
+        epochs = []
+        torch.cuda.reset_peak_memory_stats()
+        if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+            torch.cuda.reset_peak_host_memory_stats()
+        for e in range(1 + LOADER_TIMED_EPOCHS):
+            before = stage_seconds()
+            rows, loss = 0, None
+            t0 = time.perf_counter()
+            for b in port_iter():
+                loss = step(b["x"].t(), b["y"])  # [F, B] → [B, F] on the card
+                rows += int(b["y"].shape[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = stage_seconds()
+            require(rows == count, f"the loader delivered {rows} rows in epoch {e}, not {count}")
+            require(bool(torch.isfinite(loss)), "a non-finite loss in the loader's step")
+            epochs.append({"timed": e > 0, "rows": rows, "wall_s": wall,
+                           "rows_per_s": rows / wall, "loss_last": float(loss),
+                           "stage_seconds": {k: after[k] - before[k] for k in after}})
+        best = max((ep for ep in epochs if ep["timed"]), key=lambda ep: ep["rows_per_s"])
+        peak_device = torch.cuda.max_memory_allocated()
+        pinned = pinned_stats(torch)
+
+        # the step alone, on one delivered batch
+        it = iter(port_iter())
+        b = next(it)
+        x, y = b["x"].t(), b["y"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(LOADER_STEP_ITERS + 1)]
+        ev[0].record()
+        for i in range(LOADER_STEP_ITERS):
+            step(x, y)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        step_ms = float(np.median([a.elapsed_time(c) for a, c in zip(ev[:-1], ev[1:])]))
+        step_device_ms = device_ms_per_launch(torch, lambda: step(x, y), LOADER_STEP_ITERS, "")
+
+        # the device's busy share over LOADER_PROFILE_BATCHES batches of the
+        # live feed (profile() runs the batches once to warm, once traced)
+        def feed():
+            for _ in range(LOADER_PROFILE_BATCHES):
+                b = next(it)
+                step(b["x"].t(), b["y"])
+
+        busy = profile(torch, feed)
+        it.close()
+        del it, b, x, y
+
+        # the card's batches = the CPU's, byte for byte: one hash bucket,
+        # no transform, and again with the pinned reuse ring armed
+        shard = t.scan().shard(0, LOADER_BUCKETS).batch_size(LOADER_BATCH)
+        want = batches_sha(shard.to_torch_iter(device="cpu", drop_remainder=False),
+                           lambda v: v.numpy())
+        got = batches_sha(shard.to_torch_iter(device=DEVICE, drop_remainder=False),
+                          lambda v: v.cpu().numpy())
+        os.environ["LAKESOUL_COLLATE_REUSE"] = "1"
+        try:
+            ring_it = shard.to_torch_iter(device=DEVICE, drop_remainder=False)
+            require(ring_it._ring is not None, "the reuse ring did not arm on the card")
+            got_ring = batches_sha(ring_it, lambda v: v.cpu().numpy())
+        finally:
+            del os.environ["LAKESOUL_COLLATE_REUSE"]
+        require(want[1] > 0 and got == want,
+                f"the card's batches of shard(0, {LOADER_BUCKETS}) != the CPU's: {got} {want}")
+        require(got_ring == want, f"with the reuse ring the card's batches != the CPU's: "
+                                  f"{got_ring} {want}")
+
+        # the comparator: pyarrow.dataset -> DataLoader -> the same step
+        from torch.utils.data import DataLoader
+
+        baseline = {}
+        for workers in LOADER_WORKERS:
+            kw = ({"num_workers": workers, "persistent_workers": True,
+                   "multiprocessing_context": "spawn"} if workers else {})
+            loader = DataLoader(ParquetFiles(files), batch_size=1, collate_fn=stack_collate,
+                                pin_memory=True, **kw)
+            step = make_step()
+            runs = []
+            for _ in range(LOADER_TIMED_EPOCHS):  # best of: the first pays worker start-up
+                rows, loss = 0, None
+                t0 = time.perf_counter()
+                for xb, yb in loader:
+                    loss = step(xb.to(DEVICE, non_blocking=True), yb.to(DEVICE, non_blocking=True))
+                    rows += int(yb.shape[0])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                require(rows == LOADER_ROWS, f"the DataLoader delivered {rows} rows")
+                runs.append({"rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+                             "loss_last": float(loss)})
+            del loader  # stops the persistent workers
+            baseline[f"workers_{workers}"] = runs
+        base_best = max(r["rows_per_s"] for runs in baseline.values() for r in runs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    rec = {"config": "bench.py train leg: 20M-row hash-bucketed LSF table, one 5 % upsert "
+                     "wave, into MLP(16, hidden=256) Adam 1e-3",
+           "device_kind": kind, "host": host_info(), "rows": LOADER_ROWS,
+           "batch": LOADER_BATCH, "hash_bucket_num": LOADER_BUCKETS,
+           "upserted_rows": upserted, "io_threads": LOADER_IO_THREADS,
+           "native_merge": native.available(), "count_rows": count,
+           "write_s": write_s, "upsert_s": upsert_s, "parquet_write_s": parquet_s,
+           "table_bytes": table_bytes, "parquet_bytes": parquet_bytes,
+           "rows_per_s": best["rows_per_s"], "epochs": epochs,
+           "stage_seconds_best_epoch": best["stage_seconds"],
+           "dataloader_rows_per_s": base_best, "dataloader": baseline,
+           "ratio_vs_dataloader": best["rows_per_s"] / base_best,
+           "step_ms": step_ms, "step_device_ms": step_device_ms,
+           "busy_batches": LOADER_PROFILE_BATCHES,
+           "device_busy_share": busy["device_busy_share"], "busy_profile": busy,
+           "peak_device_bytes": peak_device,
+           "peak_pinned_bytes": pinned.get("allocated_bytes.peak"), "pinned": pinned,
+           "card_equals_cpu": {"shard": f"0/{LOADER_BUCKETS}", "rows": want[1],
+                               "sha256": want[0], "reuse_ring_too": True}}
+    emit("loader", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1767,14 +2136,21 @@ def main() -> int:
     del x, queries
     torch.cuda.empty_cache()
 
-    # 8-10. the training steps (no hand kernel on their path)
+    # 8-10. the training steps (no hand kernel on their path), the MLP's rows
+    # read from a table
     from lakesoul_tpu_torch import models as M
     from lakesoul_tpu_torch.models import convert as C
 
-    phase_mlp(torch, M, kind)
+    import lakesoul_tpu_torch as L
+
+    phase_mlp(torch, M, L, kind)
     phase_resnet50(torch, M, C, kind)
     torch.cuda.empty_cache()
     phase_bert_base(torch, M, C, kind)
+    torch.cuda.empty_cache()
+
+    # 11. the table -> train-step loader (host code: no hand kernel on its path)
+    phase_loader(torch, M, L, kind)
     torch.cuda.empty_cache()
 
     # ragged_score's record: the scale leg's 4-bit plane, the 1-bit plane's beside it

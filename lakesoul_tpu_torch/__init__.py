@@ -12,10 +12,29 @@ Ported so far: the single-index IVF-RaBitQ ANN serving path
 wrote in Pallas as a CUDA kernel written for Hopper (``csrc/``); and the
 training side (:mod:`lakesoul_tpu_torch.models`): the MLP, ResNet-50 and
 BERT MLM train steps on one device, a checkpointer and weight converters
-to and from the JAX package's param trees.
+to and from the JAX package's param trees; and the storage core and
+loader: :class:`LakeSoulCatalog` / :class:`LakeSoulTable` /
+:class:`LakeSoulScan` (catalog → metadata on SQLite → writer and
+merge-on-read reader, parquet and LSF, with the native C++ merge and hash
+core built by ``g++`` at first use), and
+``LakeSoulScan.to_torch_iter()``, which delivers fixed-size batches to the
+card through pinned buffers and a side stream.  A table written by either
+package opens and scans the same in the other.
 
 Entry points take ``device=None`` to mean the CUDA card and raise when there
 is none; the CPU is used only when a caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy: `import lakesoul_tpu_torch` does not load pyarrow or the catalog
+    if name in ("LakeSoulCatalog", "LakeSoulTable", "LakeSoulScan"):
+        from lakesoul_tpu_torch import catalog
+
+        return getattr(catalog, name)
+    raise AttributeError(name)
+
+
+__all__ = ["LakeSoulCatalog", "LakeSoulTable", "LakeSoulScan", "__version__"]

@@ -4,8 +4,9 @@
 Two checks: a static scan of every import statement, and a subprocess in
 which a meta-path finder makes ``jax``, ``jaxlib`` and ``lakesoul_tpu``
 unimportable while every port module is imported, a tiny index is built
-and searched on the CPU, and so is a tiny two-shard ANN plane, and the MLP,
-ResNet and BERT each take one tiny train step.  It has to be a subprocess: ``tests/conftest.py``
+and searched on the CPU, and so is a tiny two-shard ANN plane, the MLP,
+ResNet and BERT each take one tiny train step, and a tiny primary-key table
+is created, written, upserted and read through ``to_torch_iter``.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -109,9 +110,20 @@ _CHILD = textwrap.dedent(
     losses.append(make_bert_train_step(bert, opt, device="cpu")(
         ids, np.where(rng.random((2, 16)) < 0.3, ids, -100), np.ones((2, 16), bool)))
     assert all(bool(torch.isfinite(l)) for l in losses), losses
+    import pyarrow as pa
+    from lakesoul_tpu_torch import LakeSoulCatalog
+    cat = LakeSoulCatalog(tempfile.mkdtemp())
+    data = pa.table({"id": np.arange(50, dtype=np.int64), "v": rng.normal(size=50)})
+    tbl = cat.create_table("t", data.schema, primary_keys=["id"], hash_bucket_num=2)
+    tbl.write_arrow(data)
+    tbl.upsert(pa.table({"id": np.arange(5, dtype=np.int64), "v": np.zeros(5)}))
+    got = [b for b in tbl.scan().batch_size(16).to_torch_iter(device="cpu", drop_remainder=False)]
+    assert sum(len(b["id"]) for b in got) == 50, got
+    assert float(sum(b["v"][b["id"] < 5].abs().sum() for b in got)) == 0.0
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root),
-                     lambda: MLP(4), lambda: Bert(BertConfig.tiny())):
+                     lambda: MLP(4), lambda: Bert(BertConfig.tiny()),
+                     lambda: tbl.scan().to_torch_iter()):
             try:
                 make()
             except ConfigError:
