@@ -5,10 +5,12 @@
 
 Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
 serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
-plane, at 4 bits and at 1 — then its three training steps (the Titanic
-MLP, read from a table, ResNet-50 and BERT-base MLM), then the table →
-train-step loader on a 20M-row table beside a stock DataLoader, and fails
-if any phase fails.  Each phase prints one JSON line with its own timing:
+plane, at 4 bits (built from a table) and at 1 — then the table vector
+index, then its three training steps (the Titanic MLP, read from a table,
+ResNet-50 and BERT-base MLM, each on a fixed batch and fed from a table),
+then the table → train-step loader on a 20M-row table beside a stock
+DataLoader and its device replay cache, and fails if any phase fails.
+Each phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
@@ -74,7 +76,25 @@ if any phase fails.  Each phase prints one JSON line with its own timing:
              builds a 2-shard, 200k-row plane twice, requires equal shard
              digests (the bytes of every array of every segment), and holds
              the plane's kernel path against it opened on the CPU.  One
-             plane is freed before the next is built.
+             plane is freed before the next is built.  The 4-bit plane
+             takes the scale leg's own route (micro.py:1382-1415): its
+             corpus written as a non-PK LSF table and built through
+             ``iter_table_vectors`` (batches of 262,144) in a process of
+             its own (``--plane-table``: write and build seconds, its RSS,
+             whose growth over the leg is held to half of micro.py's 4096
+             MB ceiling); and a 200k-row primary-key table through
+             ``build_table_ann_plane``, opened on the card and on the CPU
+             (``ragged_topk_host`` and the native re-rank), equal top-10.
+7b. vector_table — the slice's 1,000,000 x 512 corpus as a 4-bucket
+             primary-key LSF table: ``build_vector_index`` (nlist 256 a
+             shard, 1 bit, fht, raw kept), 64 ``vector_search`` queries at
+             nprobe 256 (``packed_dot``'s product mode, counted) and
+             ``scan().vector_search(...).to_arrow()`` on 8; recall@10 >= 0.5
+             against ``bruteforce_topk``, every query's ids = the same
+             table searched with ``device="cpu"``, the scans' rows = the ids with
+             the corpus's vectors; build seconds, search p50 / p99 (the
+             searches share one ``TableVectorIndex``, so they run with the
+             shards open; the first, which opens them, is timed apart).
 8. mlp     — BASELINE config 1 as ``examples/titanic_mlp.py`` runs it: the
              example's 2,000 synthetic rows (its own copy) written to a
              ``hash_bucket_num=4`` table keyed by ``passenger_id``, an
@@ -98,6 +118,14 @@ if any phase fails.  Each phase prints one JSON line with its own timing:
              average; step ms (median, CUDA events), images/s, peak GB,
              ``mfu`` (model FLOPs over the bf16 dense peak) and the 8 kernels
              with the most device time in one profiled step.
+9b. resnet50_table — the same step fed from an image table as
+             ``examples/resnet_from_table.py`` builds it at ImageNet's
+             shapes (10,240 seeded 224² uint8 images, ``hash_bucket_num=4``,
+             LSF) through ``to_torch_iter(transform=...)``, the float pass
+             on the card; one untimed and one timed epoch: images/s beside
+             the fixed batch's, busy share over 8 batches, the ``queue``
+             share and stage sums, peak pinned and device GB; every epoch's
+             rows, finite losses, ``shard(0, 4)`` card = CPU by sha256.
 10. bert_base — BASELINE config 3 at full width: ``BertConfig.base()``, AdamW
              1e-4 (weight decay 1e-4), one fixed batch of 256 × 128 (seeded
              lengths 64-128, 15 % of the valid positions labelled and masked);
@@ -106,6 +134,10 @@ if any phase fails.  Each phase prints one JSON line with its own timing:
              line).  No hand kernel lies on the training path: the
              reference computes its models without Pallas, so the port
              runs them on torch ops.
+10b. bert_base_table — the same step fed from a C4-style token table
+             (6,144 seeded documents × 128, ``hash_bucket_num=4``, LSF, a 5 %
+             upsert wave) with the example's masking on the host; the
+             numbers of 9b with sequences/s and tokens/s.
 11. loader — ``bench.py``'s headline train leg on the card: its 20,000,000-row
              table (``id``, ``f0..f15`` float32, ``label``; 500k-row chunks
              from seed 0, ``hash_bucket_num=8``, LSF, one 5 % upsert wave
@@ -125,7 +157,16 @@ if any phase fails.  Each phase prints one JSON line with its own timing:
              reuse ring armed too).  Reports both rows/s and their ratio,
              the step's device ms, the device's busy share over 8 batches,
              the scan's stage sums over a timed epoch, peak pinned and
-             device bytes, and the host's CPU count and model.
+             device bytes, and the host's CPU count and model.  Then
+             ``bench.py``'s ``train_hbm`` leg: ``cache="device"``, one fill
+             epoch and the best of 2 replay epochs
+             (``hbm_resident_replay_rows_per_s``), required >= 2.0x the
+             streamed rows/s (micro.py:1514-1518), a replay epoch = a
+             streamed epoch by sha256 and free of host-device syncs; at
+             half the epoch's bytes the spill (resident prefix + streamed
+             tail = the stream, counters > 0); permuted replays equal under
+             one seed, the stream's rows as a multiset, reordered the next
+             epoch.
 
 Each ANN path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
@@ -163,6 +204,7 @@ EX_BITS = 4  # the ex slice's total_bits
 # 1243-1244, 1323, total_bits 4 at :1405), then the same plane at 1 bit
 PLANE_ROWS, PLANE_DIM, PLANE_NLIST, PLANE_CENTERS = 10_000_000, 128, 512, 4096
 PLANE_BITS = (4, 1)
+PLANE_TABLE_BITS = 4  # the plane built from a table (the scale leg's bits)
 PLANE_BUDGET = 768 << 20
 PLANE_CHUNK = 500_000
 PLANE_NPROBE, PLANE_RERANK = 48, 64
@@ -218,6 +260,20 @@ LOADER_UPSERT_FRAC, LOADER_UPSERT_CHUNK = 0.05, 2_000_000
 LOADER_BATCH, LOADER_HIDDEN, LOADER_LR, LOADER_IO_THREADS = 524_288, 256, 1e-3, 2
 LOADER_TIMED_EPOCHS, LOADER_PROFILE_BATCHES, LOADER_STEP_ITERS = 2, 8, 20
 LOADER_WORKERS = (2, 0)  # the DataLoader comparator's num_workers, best of
+TENSOR_REPLAY_FLOOR = 2.0  # benchmarks/micro.py:1514-1518: replay >= 2x the streamed rows/s
+REPLAY_EPOCHS = 2  # replay epochs timed after the fill epoch, best of
+# slice 4's table feeds (examples/resnet_from_table.py, bert_mlm_from_table.py)
+# at the models' full widths
+RESNET_TABLE_ROWS, FEED_BUCKETS = 10_240, 4  # 40 batches of 256, ~1.54 GB of pixels
+RESNET_CLASSES = 1000  # ResNetConfig()'s head: the labels are drawn below it
+BERT_TABLE_ROWS, BERT_UPSERT_FRAC = 6_144, 0.05  # 24 batches of 256 x 128
+FEED_PROFILE_BATCHES = 8
+# the 4-bit plane's table leg (micro.py:1382-1415) and its RSS ceiling, armed
+# when the leg starts under half of it (micro.py:1208-1210, 1389-1392)
+PLANE_TABLE_BATCH, ANN_SCALE_RSS_CEILING_MB = 262_144, 4096
+# the slice's corpus as a table: build_vector_index / vector_search
+VT_BUCKETS, VT_NLIST, VT_NPROBE, VT_CHUNK = 4, 256, 256, 250_000
+VT_QUERIES, VT_SCAN_QUERIES = 64, 8
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -1152,17 +1208,32 @@ def phase_ex_slice(torch, K, R) -> dict:
     return {"launches": launches}
 
 
-def make_plane_data(torch, dev, n: int, n_q: int):
-    """The scale leg's clustered corpus, generated on the card: 4096 centres
-    of scale 3.0 plus unit noise (``_ann_scale_corpus_chunks``), and fresh
-    draws of the same mixture as queries."""
+def plane_chunks(torch, dev, n: int):
+    """The scale leg's clustered corpus, generated on the card chunk by
+    chunk: 4096 centres of scale 3.0 plus unit noise
+    (``_ann_scale_corpus_chunks``).  Yields ``(lo, hi, rows)``, then
+    returns the generator and the centres for the queries' draw."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     centers = torch.randn(PLANE_CENTERS, PLANE_DIM, device=dev, generator=g) * 3.0
-    x = torch.empty((n, PLANE_DIM), device=dev)
     for lo in range(0, n, PLANE_CHUNK):
         hi = min(n, lo + PLANE_CHUNK)
         comp = torch.randint(0, PLANE_CENTERS, (hi - lo,), device=dev, generator=g)
-        x[lo:hi] = centers[comp] + torch.randn(hi - lo, PLANE_DIM, device=dev, generator=g)
+        yield lo, hi, centers[comp] + torch.randn(hi - lo, PLANE_DIM, device=dev, generator=g)
+    return g, centers
+
+
+def make_plane_data(torch, dev, n: int, n_q: int):
+    """The corpus of :func:`plane_chunks` whole, and fresh draws of the same
+    mixture as queries."""
+    x = torch.empty((n, PLANE_DIM), device=dev)
+    chunks = plane_chunks(torch, dev, n)
+    while True:
+        try:
+            lo, hi, rows = next(chunks)
+        except StopIteration as done:
+            g, centers = done.value
+            break
+        x[lo:hi] = rows
     comp = torch.randint(0, PLANE_CENTERS, (n_q,), device=dev, generator=g)
     return x, centers[comp] + torch.randn(n_q, PLANE_DIM, device=dev, generator=g)
 
@@ -1227,6 +1298,140 @@ def plane_digests(root: str) -> list:
     return out
 
 
+def plane_config(bits: int):
+    from lakesoul_tpu_torch.annplane import AnnPlaneConfig
+    from lakesoul_tpu_torch.vector import VectorIndexConfig
+
+    index_cfg = VectorIndexConfig("emb", PLANE_DIM, nlist=PLANE_NLIST, total_bits=bits, seed=SEED)
+    return AnnPlaneConfig(index=index_cfg, shard_budget_bytes=PLANE_BUDGET, keep_raw=True)
+
+
+def corpus_digest(chunks) -> float:
+    """Float64 sums over the corpus's chunks: the two processes' corpora
+    agree."""
+    return sum(float(rows.double().sum()) for rows in chunks)
+
+
+def plane_table_build(workdir: str) -> int:
+    """The 4-bit plane's build leg, the scale leg's own route
+    (``benchmarks/micro.py:1382-1415``), run as ``chip_smoke.py
+    --plane-table DIR`` in a process of its own so that its peak RSS is the
+    leg's: the scale leg's corpus (``make_plane_data``, the same seeded draw
+    as the parent's) written as a non-PK LSF table (``id`` int64, ``emb``
+    FixedSizeList<float32, 128>), then ``ShardedAnnBuilder(root, cfg).build(
+    iter_table_vectors(table, "emb", "id", batch_size=262_144))`` into
+    ``DIR/plane``.  Prints one JSON line: write and build seconds, the RSS
+    at the leg's start and the build's peak, the manifest, the corpus
+    digest."""
+    import pyarrow as pa
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lakesoul_tpu_torch as L
+    from lakesoul_tpu_torch.annplane import ShardedAnnBuilder, iter_table_vectors
+
+    rss_before_cuda = rss_mb()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.zeros(1, device=DEVICE)  # the CUDA context, before the leg starts
+    schema = pa.schema([("id", pa.int64()), ("emb", pa.list_(pa.float32(), PLANE_DIM))])
+    sums = []
+    with RssPeak() as rss:
+        t = L.LakeSoulCatalog(os.path.join(workdir, "wh")).create_table(
+            "corpus", schema, properties={"lakesoul.file_format": "lsf"})
+        t0 = time.perf_counter()
+        for lo, hi, rows in plane_chunks(torch, DEVICE, PLANE_ROWS):
+            sums.append(float(rows.double().sum()))
+            t.write_arrow(pa.table({
+                "id": np.arange(lo, hi, dtype=np.int64),
+                "emb": pa.FixedSizeListArray.from_arrays(
+                    pa.array(rows.cpu().numpy().reshape(-1)), PLANE_DIM)}, schema=schema))
+            del rows
+        write_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        manifest = ShardedAnnBuilder(os.path.join(workdir, "plane"), plane_config(4)).build(
+            iter_table_vectors(t, "emb", "id", batch_size=PLANE_TABLE_BATCH))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    print(json.dumps({"write_s": write_s, "build_s": build_s, "rss_before_cuda_mb": rss_before_cuda,
+                      "rss_start_mb": rss.start_mb,
+                      "build_peak_rss_mb": rss.peak_mb,
+                      "peak_device_reserved_mb": torch.cuda.max_memory_reserved() / 2**20,
+                      "table_bytes": dir_bytes(os.path.join(workdir, "wh")),
+                      "corpus_digest": sum(sums), "manifest": manifest}), flush=True)
+    return 0
+
+
+def build_plane_from_table(torch, x, workdir: str) -> tuple[dict, dict]:
+    """Run :func:`plane_table_build` in a child process and hold its
+    record: the plane complete with every row, the same corpus as ``x``,
+    and micro.py's RSS ceiling when the leg started under half of it."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--plane-table", workdir],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    require(proc.returncode == 0, f"the plane's table build exited {proc.returncode}")
+    leg = json.loads(proc.stdout.strip().splitlines()[-1])
+    manifest = leg.pop("manifest")
+    leg["rss_gate_armed"] = leg["rss_start_mb"] < 0.5 * ANN_SCALE_RSS_CEILING_MB
+    leg["rss_ceiling_mb"] = ANN_SCALE_RSS_CEILING_MB
+    leg["rss_growth_mb"] = leg["build_peak_rss_mb"] - leg["rss_start_mb"]
+    emit("plane_table_leg", **leg, shards=len(manifest["shards"]))
+    require(manifest["complete"] and manifest["total_rows"] == PLANE_ROWS,
+            f"the table-built plane: complete {manifest['complete']}, "
+            f"{manifest['total_rows']} rows")
+    require(leg["corpus_digest"] == corpus_digest(
+                x[lo:lo + PLANE_CHUNK] for lo in range(0, PLANE_ROWS, PLANE_CHUNK)),
+            "the table build's corpus differs from this process's")
+    if leg["rss_gate_armed"]:
+        require(leg["build_peak_rss_mb"] <= ANN_SCALE_RSS_CEILING_MB,
+                f"the build's peak RSS {leg['build_peak_rss_mb']} MB > "
+                f"{ANN_SCALE_RSS_CEILING_MB}")
+    else:
+        # a process with a CUDA context can start above half the ceiling
+        # before the leg does anything (the card's sandbox reports ~4.9 GB):
+        # hold the leg's own growth to what the rule lets an armed start
+        # grow, half the ceiling
+        require(leg["rss_growth_mb"] <= 0.5 * ANN_SCALE_RSS_CEILING_MB,
+                f"the build's RSS grew {leg['rss_growth_mb']} MB over the leg, more than "
+                f"half of {ANN_SCALE_RSS_CEILING_MB}")
+    return manifest, leg
+
+
+def table_plane_hold(torch, L, x, qs_np, cfg, params, workdir: str) -> dict:
+    """``build_table_ann_plane`` over SMALL_PLANE_ROWS of the corpus in a
+    primary-key table (``hash_bucket_num=4``, LSF): the plane opened on the
+    card must answer N_PLANE_HOLD queries as it does opened on the CPU,
+    which runs ``ragged_topk_host`` and the native re-rank, ties aside."""
+    import pyarrow as pa
+
+    from lakesoul_tpu_torch.annplane import AnnPlane, build_table_ann_plane
+
+    schema = pa.schema([("id", pa.int64()), ("emb", pa.list_(pa.float32(), PLANE_DIM))])
+    t = L.LakeSoulCatalog(os.path.join(workdir, "small_wh")).create_table(
+        "small", schema, primary_keys=["id"], hash_bucket_num=FEED_BUCKETS,
+        properties={"lakesoul.file_format": "lsf"})
+    t.write_arrow(pa.table({
+        "id": np.arange(SMALL_PLANE_ROWS, dtype=np.int64),
+        "emb": pa.FixedSizeListArray.from_arrays(
+            pa.array(x[:SMALL_PLANE_ROWS].cpu().numpy().reshape(-1)), PLANE_DIM)},
+        schema=schema))
+    t0 = time.perf_counter()
+    manifest = build_table_ann_plane(t, "emb", config=cfg)
+    build_s = time.perf_counter() - t0
+    require(manifest["complete"] and manifest["total_rows"] == SMALL_PLANE_ROWS,
+            "build_table_ann_plane lost rows")
+    root = f"{t.info.table_path}/_ann_plane/emb"
+    on_card, on_cpu = AnnPlane.open(root), AnnPlane.open(root, device="cpu")
+    g_ids, g_d = on_card.batch_search(qs_np[:N_PLANE_HOLD], params)
+    c_ids, c_d = on_cpu.batch_search(qs_np[:N_PLANE_HOLD], params)
+    held = sum(same_topk(c_ids[i], c_d[i], g_ids[i], g_d[i]) for i in range(N_PLANE_HOLD))
+    require(held == N_PLANE_HOLD, f"the table-built plane on the card != on the CPU "
+                                  f"(ragged_topk_host) on {N_PLANE_HOLD - held} queries")
+    return {"rows": SMALL_PLANE_ROWS, "shards": len(manifest["shards"]), "build_s": build_s,
+            "card_equals_cpu_host_path": f"{held}/{N_PLANE_HOLD}"}
+
+
 def phase_repro(torch, x) -> dict:
     """``kmeans`` twice from one seed on one plane shard's rows: the
     centroids and assignments must be bitwise equal."""
@@ -1257,14 +1462,17 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
         ShardedAnnBuilder,
         ShardedAnnEndpoint,
     )
-    from lakesoul_tpu_torch.vector import SearchParams, VectorIndexConfig
+    from lakesoul_tpu_torch.vector import SearchParams
     from lakesoul_tpu_torch.vector.oracle import recall_at_k
+
+    import lakesoul_tpu_torch as L
 
     t0 = time.perf_counter()
     dev = DEVICE
     qs_np = queries.cpu().numpy()
-    index_cfg = VectorIndexConfig("emb", PLANE_DIM, nlist=PLANE_NLIST, total_bits=bits, seed=SEED)
-    cfg = AnnPlaneConfig(index=index_cfg, shard_budget_bytes=PLANE_BUDGET, keep_raw=True)
+    cfg = plane_config(bits)
+    index_cfg = cfg.index
+    from_table = bits == PLANE_TABLE_BITS
     params = SearchParams(top_k=10, nprobe=PLANE_NPROBE, rerank_depth=PLANE_RERANK)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_plane_")
     try:
@@ -1273,10 +1481,15 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
 
         # ---- the main path, counted: build → open → batch → serve → oracle
         reset_launches(K, R)
-        t = time.perf_counter()
-        manifest = ShardedAnnBuilder(root, cfg).build(plane_stream(x, PLANE_ROWS))
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t
+        table_leg = None
+        if from_table:  # the scale leg's route: a table, then the bounded scan
+            manifest, table_leg = build_plane_from_table(torch, x, workdir)
+            build_s = table_leg["build_s"]
+        else:
+            t = time.perf_counter()
+            manifest = ShardedAnnBuilder(root, cfg).build(plane_stream(x, PLANE_ROWS))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
         require(manifest["complete"] and manifest["total_rows"] == PLANE_ROWS,
                 "the plane lost rows")
         t = time.perf_counter()
@@ -1417,6 +1630,8 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
         require(held == N_PLANE_HOLD,
                 f"plane kernel path != plain path on {N_PLANE_HOLD - held} of {N_PLANE_HOLD}")
         del on_card, on_cpu
+        table_hold = (table_plane_hold(torch, L, x, qs_np, small_cfg, params, workdir)
+                      if from_table else None)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1424,8 +1639,10 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
         "plane", seconds=time.perf_counter() - t0, total_bits=bits, vectors=PLANE_ROWS,
         dim=PLANE_DIM, nlist_per_shard=PLANE_NLIST, shards=len(manifest["shards"]),
         rows_per_shard=manifest["rows_per_shard"], shard_budget_bytes=PLANE_BUDGET,
-        reduced={"corpus": "generated on the card, not written to and scanned from a table"},
-        build_s=build_s, open_s=open_s, peak_device_gb=peak_gb,
+        reduced=(None if from_table else
+                 {"corpus": "generated on the card, not written to and scanned from a table "
+                            "(the 4-bit plane takes the table route)"}),
+        table_leg=table_leg, table_plane_hold=table_hold, build_s=build_s, open_s=open_s, peak_device_gb=peak_gb,
         batch_qps=N_QUERIES / batch_s, batch_s=batch_s, nprobe=PLANE_NPROBE,
         rerank_depth=PLANE_RERANK, mixed_nprobe_batch_held="64/64",
         serving_qps=n_req / serve_s, serving_p50_s=stats["latency_p50"],
@@ -1717,8 +1934,8 @@ def phase_resnet50(torch, M, C, kind: str) -> dict:
            "mfu": flops / sec / PEAK_BF16_FLOP_S, "mfu_peak_flop_s": PEAK_BF16_FLOP_S,
            "profile": {**prof, "top": prof["top"][:PROFILE_TOP]},
            "held": hold["held"],
-           "reduced": {"data": "one fixed batch of seeded normal images, not decoded from an "
-                               "ImageNet table (the loader waits for the storage core)"}}
+           "data": "one fixed batch of seeded normal images: the step alone; the "
+                   "resnet50_table phase feeds it from a table"}
     emit("resnet50", **rec)
     return rec
 
@@ -1778,10 +1995,368 @@ def phase_bert_base(torch, M, C, kind: str) -> dict:
            "model_flop_per_step": flops, "mfu": flops / sec / PEAK_BF16_FLOP_S,
            "mfu_peak_flop_s": PEAK_BF16_FLOP_S,
            "profile": {**prof, "top": prof["top"][:PROFILE_TOP]}, "held": hold["held"],
-           "reduced": {"data": "one fixed batch of seeded token ids, not C4 tokenised from a "
-                               "table (the loader waits for the storage core)"}}
+           "data": "one fixed batch of seeded token ids: the step alone; the "
+                   "bert_base_table phase feeds it from a table"}
     emit("bert_base", **rec)
     return rec
+
+
+def resnet_table_transform(b: dict) -> dict:
+    """``examples/resnet_from_table.py``'s transform, split at the copy to
+    the card: here the uint8 pixels become an NHWC view and the labels
+    int32; the division by 255 into float32 runs on the card after the
+    uint8 batch lands (``resnet_table_images``), so a quarter of the bytes
+    cross the link and the host does no float pass."""
+    return {"x": b["pixels"].reshape(-1, RESNET_IMG, RESNET_IMG, 3),
+            "y": b["label"].astype(np.int32)}
+
+
+def resnet_example_transform(b: dict) -> dict:
+    """The example's transform whole, on the host (timed beside the split)."""
+    imgs = b["pixels"].reshape(-1, RESNET_IMG, RESNET_IMG, 3).astype(np.float32) / 255.0
+    return {"x": imgs, "y": b["label"].astype(np.int32)}
+
+
+def resnet_table_images(torch, x):
+    """The card's half of the transform: uint8 NHWC → float32 / 255."""
+    return x.to(torch.float32).div_(255.0)
+
+
+def bert_table_transform(rng):
+    """``examples/bert_mlm_from_table.py``'s transform on the host: 15 % of
+    the positions drawn from ``rng`` (numpy), labelled with their token and
+    replaced by [MASK] = 3, labels -100 elsewhere, an all-ones mask."""
+    def transform(b):
+        ids = b["tokens"]
+        labels = np.full_like(ids, -100)
+        mask_pos = rng.random(ids.shape) < BERT_LABEL_SHARE
+        labels[mask_pos] = ids[mask_pos]
+        masked = ids.copy()
+        masked[mask_pos] = BERT_MASK_ID
+        return {"ids": masked.astype(np.int32), "labels": labels.astype(np.int32),
+                "mask": np.ones_like(ids, dtype=bool)}
+
+    return transform
+
+
+def feed_epochs(torch, make_iter, train, rows_of, expect: int) -> list:
+    """One untimed epoch, then one timed, each through a fresh iterator:
+    every epoch must deliver ``expect`` rows and every loss be finite; per
+    epoch the rows/s, the stage sums and the ``queue`` stage's share of the
+    wall time (how long the step waited on the loader)."""
+    from lakesoul_tpu_torch.obs.stages import stage_seconds
+
+    epochs = []
+    for e in range(2):
+        before = stage_seconds()
+        rows, losses = 0, []
+        t0 = time.perf_counter()
+        for b in make_iter():
+            losses.append(train(b))
+            rows += int(rows_of(b))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = stage_seconds()
+        losses = [float(v) for v in losses]
+        require(rows == expect, f"epoch {e} delivered {rows} rows, not {expect}")
+        require(all(np.isfinite(losses)), f"a non-finite loss in epoch {e}: {losses}")
+        stages = {k: after[k] - before[k] for k in after}
+        epochs.append({"timed": e > 0, "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+                       "steps": len(losses), "loss_first": losses[0], "loss_last": losses[-1],
+                       "stage_seconds": stages, "queue_share": stages["queue"] / wall})
+    return epochs
+
+
+def feed_busy(torch, make_iter, train) -> dict:
+    """The card's busy share over FEED_PROFILE_BATCHES batches of the live
+    feed (profile() runs them once to warm, once traced)."""
+    it = iter(make_iter())
+
+    def feed():
+        for _ in range(FEED_PROFILE_BATCHES):
+            train(next(it))
+
+    busy = profile(torch, feed)
+    it.close()
+    return busy
+
+
+def reset_peaks(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+        torch.cuda.reset_peak_host_memory_stats()
+
+
+def phase_resnet50_table(torch, M, L, kind: str, fixed_images_per_s: float) -> dict:
+    """BASELINE config 2 fed from a table, as ``examples/resnet_from_table.py``
+    builds it at ImageNet's shapes: ``image_id`` int64 primary key,
+    ``pixels`` FixedSizeList<uint8, 150528> (224² × 3), ``label`` int32 <
+    1000, ``hash_bucket_num=4``, LSF, RESNET_TABLE_ROWS seeded images, then
+    ``scan().auto_shard().batch_size(256).to_torch_iter(transform=...)``
+    into the resnet50 phase's step (``ResNetConfig()``, bf16, SGD 0.05).
+    Requires every epoch's rows, finite losses, and ``shard(0, 4)``'s card
+    batches, copied back, = its CPU batches by sha256."""
+    import pyarrow as pa
+
+    n_px = RESNET_IMG * RESNET_IMG * 3
+    schema = pa.schema([("image_id", pa.int64()), ("pixels", pa.list_(pa.uint8(), n_px)),
+                        ("label", pa.int32())])
+    wh = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        pixels = rng.integers(0, 256, (RESNET_TABLE_ROWS, n_px), dtype=np.uint8)
+        labels = rng.integers(0, RESNET_CLASSES, RESNET_TABLE_ROWS).astype(np.int32)
+        t = L.LakeSoulCatalog(wh).create_table(
+            "imagenet", schema, primary_keys=["image_id"], hash_bucket_num=FEED_BUCKETS,
+            properties={"lakesoul.file_format": "lsf"})
+        t.write_arrow(pa.table({
+            "image_id": np.arange(RESNET_TABLE_ROWS, dtype=np.int64),
+            "pixels": pa.FixedSizeListArray.from_arrays(pixels.reshape(-1), n_px),
+            "label": labels}, schema=schema))
+        write_s = time.perf_counter() - t0
+        del pixels
+        table_bytes = dir_bytes(wh)
+        count = t.scan().count_rows()
+        require(count == RESNET_TABLE_ROWS, f"count_rows {count} != {RESNET_TABLE_ROWS}")
+
+        model = M.ResNet(M.ResNetConfig(), seed=SEED, device=DEVICE)
+        step = M.make_resnet_train_step(model, M.sgd(model.parameters(), RESNET_LR),
+                                        device=DEVICE)
+
+        def make_iter():
+            return t.scan().auto_shard().batch_size(RESNET_BATCH).to_torch_iter(
+                transform=resnet_table_transform, device=DEVICE)
+
+        def train(b):
+            return step(resnet_table_images(torch, b["x"]), b["y"])
+
+        def rows_of(b):
+            return b["y"].shape[0]
+
+        reset_peaks(torch)
+        epochs = feed_epochs(torch, make_iter, train, rows_of, count)
+        peak_device = torch.cuda.max_memory_allocated()
+        pinned = pinned_stats(torch)
+        busy = feed_busy(torch, make_iter, train)
+
+        # where the float pass runs: the example's whole transform on the
+        # host beside the card's half on one delivered batch
+        hb = next(iter(t.scan().batch_size(RESNET_BATCH).to_torch_iter(device_put=False)))
+        host_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            resnet_example_transform(hb)
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+        xb = torch.from_numpy(resnet_table_transform(hb)["x"]).to(DEVICE)
+        card_ms = time_ms(torch, lambda: resnet_table_images(torch, xb), 10)
+        del hb, xb
+
+        # the card's batches = the CPU's: one hash bucket, no transform
+        shard = t.scan().shard(0, FEED_BUCKETS).batch_size(RESNET_BATCH)
+        rows_id = lambda b: b["image_id"].shape[0]  # noqa: E731
+        want = batches_sha(shard.to_torch_iter(device="cpu", drop_remainder=False),
+                           lambda v: v.numpy(), rows_id)
+        got = batches_sha(shard.to_torch_iter(device=DEVICE, drop_remainder=False),
+                          lambda v: v.cpu().numpy(), rows_id)
+        require(want[1] > 0 and got == want,
+                f"the card's batches of shard(0, {FEED_BUCKETS}) != the CPU's: {got} {want}")
+    finally:
+        shutil.rmtree(wh, ignore_errors=True)
+    timed = epochs[-1]
+    rec = {"config": "BASELINE config 2 fed from an image table (examples/resnet_from_table.py "
+                     "at ImageNet's shapes)", "device_kind": kind, "rows": count,
+           "batch": RESNET_BATCH, "image": RESNET_IMG, "hash_bucket_num": FEED_BUCKETS,
+           "write_s": write_s, "table_bytes": table_bytes, "epochs": epochs,
+           "images_per_s": timed["rows_per_s"], "fixed_batch_images_per_s": fixed_images_per_s,
+           "queue_share": timed["queue_share"], "stage_seconds": timed["stage_seconds"],
+           "busy_batches": FEED_PROFILE_BATCHES,
+           "device_busy_share": busy["device_busy_share"], "busy_profile": busy,
+           "peak_device_gb": peak_device / 1e9,
+           "peak_pinned_gb": (pinned.get("allocated_bytes.peak") or 0) / 1e9,
+           "transform": {"host_part": "uint8 NHWC view + int32 labels",
+                         "card_part": "float32 / 255 after the copy",
+                         "example_transform_on_host_ms": host_ms,
+                         "card_part_ms": card_ms},
+           "card_equals_cpu": {"shard": f"0/{FEED_BUCKETS}", "rows": want[1],
+                               "sha256": want[0]}}
+    emit("resnet50_table", **rec)
+    return rec
+
+
+def phase_bert_base_table(torch, M, L, kind: str, fixed: dict) -> dict:
+    """BASELINE config 3 fed from a C4-style token table, as
+    ``examples/bert_mlm_from_table.py`` builds it at BERT-base's widths:
+    ``doc_id`` int64 primary key, ``tokens`` FixedSizeList<int32, 128>,
+    ``hash_bucket_num=4``, LSF, BERT_TABLE_ROWS seeded documents with tokens
+    in [4, 30522), one upsert wave of BERT_UPSERT_FRAC (so the scan merges
+    on read); batches of 256 × 128 with the example's masking into
+    ``BertConfig.base()`` and AdamW 1e-4.  Requires every epoch's rows and
+    finite losses."""
+    import pyarrow as pa
+
+    model, opt = M.make_bert_train_state(M.BertConfig.base(), seed=SEED, device=DEVICE)
+    vocab = model.cfg.vocab_size
+    schema = pa.schema([("doc_id", pa.int64()), ("tokens", pa.list_(pa.int32(), BERT_SEQ))])
+
+    def docs(ids, rng):
+        tok = rng.integers(4, vocab, (len(ids), BERT_SEQ)).astype(np.int32)
+        return pa.table({"doc_id": ids, "tokens": pa.FixedSizeListArray.from_arrays(
+            tok.reshape(-1), BERT_SEQ)}, schema=schema)
+
+    wh = tempfile.mkdtemp(prefix="chip_smoke_c4_")
+    try:
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        t = L.LakeSoulCatalog(wh).create_table(
+            "c4", schema, primary_keys=["doc_id"], hash_bucket_num=FEED_BUCKETS,
+            properties={"lakesoul.file_format": "lsf"})
+        t.write_arrow(docs(np.arange(BERT_TABLE_ROWS, dtype=np.int64), rng))
+        n_up = int(BERT_TABLE_ROWS * BERT_UPSERT_FRAC)
+        t.upsert(docs(np.sort(rng.choice(BERT_TABLE_ROWS, n_up, replace=False)), rng))
+        write_s = time.perf_counter() - t0
+        count = t.scan().count_rows()
+        require(count == BERT_TABLE_ROWS, f"count_rows {count} != {BERT_TABLE_ROWS}")
+        step = M.make_bert_train_step(model, opt, device=DEVICE)
+        transform = bert_table_transform(np.random.default_rng(SEED))
+
+        def make_iter():
+            return t.scan().auto_shard().batch_size(BERT_BATCH).to_torch_iter(
+                transform=transform, device=DEVICE)
+
+        def train(b):
+            return step(b["ids"], b["labels"], b["mask"])
+
+        def rows_of(b):
+            return b["ids"].shape[0]
+
+        reset_peaks(torch)
+        epochs = feed_epochs(torch, make_iter, train, rows_of, count)
+        peak_device = torch.cuda.max_memory_allocated()
+        pinned = pinned_stats(torch)
+        busy = feed_busy(torch, make_iter, train)
+    finally:
+        shutil.rmtree(wh, ignore_errors=True)
+    timed = epochs[-1]
+    rec = {"config": "BASELINE config 3 fed from a C4-style token table with an upsert wave "
+                     "(examples/bert_mlm_from_table.py at BERT-base's widths)",
+           "device_kind": kind, "rows": count, "upserted_rows": n_up, "batch": BERT_BATCH,
+           "seq": BERT_SEQ, "hash_bucket_num": FEED_BUCKETS, "write_s": write_s,
+           "epochs": epochs, "sequences_per_s": timed["rows_per_s"],
+           "tokens_per_s": timed["rows_per_s"] * BERT_SEQ,
+           "fixed_batch_sequences_per_s": fixed["sequences_per_s"],
+           "fixed_batch_tokens_per_s": fixed["tokens_per_s"],
+           "queue_share": timed["queue_share"], "stage_seconds": timed["stage_seconds"],
+           "busy_batches": FEED_PROFILE_BATCHES,
+           "device_busy_share": busy["device_busy_share"], "busy_profile": busy,
+           "peak_device_gb": peak_device / 1e9,
+           "peak_pinned_gb": (pinned.get("allocated_bytes.peak") or 0) / 1e9}
+    emit("bert_base_table", **rec)
+    return rec
+
+
+def phase_vector_table(torch, K, R, L, kind: str) -> dict:
+    """The slice's corpus as a table (1,000,000 × 512, ``id`` int64 primary
+    key, ``hash_bucket_num=4``, LSF, written in VT_CHUNK-row commits, so
+    every bucket merges on read) through ``build_vector_index("emb",
+    nlist=256, total_bits=1, rotator="fht")`` (4 shards, 1,024 lists, raw
+    kept), VT_QUERIES ``vector_search`` queries at nprobe 256 and
+    ``scan().vector_search(...).to_arrow()`` on VT_SCAN_QUERIES of them,
+    with the ``bruteforce_topk`` oracle in the counted path.  Requires
+    recall@10 >= 0.5, every query's ids = the same table searched with
+    ``device="cpu"`` (ties aside), and each scan's rows = its query's ids
+    with the corpus's vectors."""
+    import pyarrow as pa
+
+    from lakesoul_tpu_torch.vector.builder import TableVectorIndex
+    from lakesoul_tpu_torch.vector.oracle import recall_at_k
+
+    x, queries = make_data(torch, DEVICE)
+    queries = queries[:VT_QUERIES]
+    qs_np = queries.cpu().numpy()
+    schema = pa.schema([("id", pa.int64()), ("emb", pa.list_(pa.float32(), DIM))])
+    wh = tempfile.mkdtemp(prefix="chip_smoke_vectors_")
+    try:
+        t0 = time.perf_counter()
+        t = L.LakeSoulCatalog(wh).create_table(
+            "embeddings", schema, primary_keys=["id"], hash_bucket_num=VT_BUCKETS,
+            properties={"lakesoul.file_format": "lsf"})
+        for lo in range(0, N_VECTORS, VT_CHUNK):
+            hi = min(N_VECTORS, lo + VT_CHUNK)
+            t.write_arrow(pa.table({
+                "id": np.arange(lo, hi, dtype=np.int64),
+                "emb": pa.FixedSizeListArray.from_arrays(
+                    pa.array(x[lo:hi].cpu().numpy().reshape(-1)), DIM)}, schema=schema))
+        write_s = time.perf_counter() - t0
+
+        # ---- the main path, counted: build → search → scan → oracle
+        reset_launches(K, R)
+        t0 = time.perf_counter()
+        indexed = t.build_vector_index("emb", nlist=VT_NLIST, total_bits=1, rotator="fht")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        # the searches share one handle, which holds the opened shards on
+        # the card: p50 / p99 time searches with the shards open, the first
+        # search (which opens them) is timed on its own
+        index = TableVectorIndex(DEVICE)
+        t0 = time.perf_counter()
+        t.vector_search("emb", qs_np[0], top_k=10, nprobe=VT_NPROBE, index=index)
+        first_s = time.perf_counter() - t0
+        got, lat = [], []
+        for q in qs_np:
+            t0 = time.perf_counter()
+            got.append(t.vector_search("emb", q, top_k=10, nprobe=VT_NPROBE, index=index))
+            lat.append(time.perf_counter() - t0)
+        scans = [t.scan().vector_search("emb", q, top_k=10, nprobe=VT_NPROBE,
+                                        index=index).to_arrow()
+                 for q in qs_np[:VT_SCAN_QUERIES]]
+        top = torch.stack([K.bruteforce_topk(x, q, 10).indices for q in queries]).cpu().numpy()
+        launches = read_launches(K, R)
+        # ---- end of the counted main path
+        index.release()
+
+        require(indexed == N_VECTORS, f"build_vector_index indexed {indexed} rows")
+        require(launches["packed_dot"] > 0 and launches["bruteforce_distances"] > 0,
+                f"a kernel never ran on the table index's path: {launches}")
+        require(all(len(i) == 10 and np.isfinite(d).all() for i, d in got),
+                "vector_search returned short or non-finite results")
+        recall = recall_at_k([set(r.tolist()) for r in top], [i for i, _ in got])
+        require(recall >= RECALL_FLOOR, f"table index recall@10 {recall} < {RECALL_FLOOR}")
+        x_np = None
+        for (ids, _), tab in zip(got, scans):
+            want = np.sort(ids.astype(np.int64))
+            order = np.argsort(tab.column("id").to_numpy())
+            require(np.array_equal(tab.column("id").to_numpy()[order], want),
+                    "scan().vector_search rows != the search's ids")
+            emb = np.asarray(tab.column("emb").combine_chunks().values).reshape(-1, DIM)[order]
+            x_np = x[torch.from_numpy(want)].cpu().numpy()
+            require(np.array_equal(emb, x_np), "scan().vector_search rows != the corpus's")
+        t0 = time.perf_counter()
+        with TableVectorIndex("cpu") as cpu_index:
+            cpu = [t.vector_search("emb", q, top_k=10, nprobe=VT_NPROBE, index=cpu_index)
+                   for q in qs_np]
+        cpu_s = time.perf_counter() - t0
+        held = sum(same_topk(c[0], c[1], g[0], g[1]) for c, g in zip(cpu, got))
+        require(held == VT_QUERIES, f"the table index on the card != on the CPU on "
+                                    f"{VT_QUERIES - held} of {VT_QUERIES} queries")
+    finally:
+        shutil.rmtree(wh, ignore_errors=True)
+    del x, queries
+    lat_ms = np.array(lat) * 1e3
+    rec = {"config": "the slice's corpus as a table: 1,000,000 x 512, id primary key, "
+                     "hash_bucket_num 4, 1-bit fht, raw kept", "device_kind": kind,
+           "rows": N_VECTORS, "dim": DIM, "hash_bucket_num": VT_BUCKETS, "nlist": VT_NLIST,
+           "lists": VT_NLIST * VT_BUCKETS, "nprobe": VT_NPROBE, "write_s": write_s,
+           "build_s": build_s, "first_search_s": first_s, "queries": VT_QUERIES,
+           "search_p50_ms": float(np.percentile(lat_ms, 50)),
+           "search_p99_ms": float(np.percentile(lat_ms, 99)),
+           "recall_at_10": recall, "recall_floor": RECALL_FLOOR,
+           "scan_vector_search_held": f"{len(scans)}/{len(scans)}",
+           "card_equals_cpu": f"{held}/{VT_QUERIES}", "cpu_search_s": cpu_s,
+           "launches": launches}
+    emit("vector_table", **rec)
+    return {"launches": launches}
 
 
 def loader_schema():
@@ -1901,7 +2476,7 @@ def dir_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
 
 
-def batches_sha(batches, to_host) -> tuple[str, int]:
+def batches_sha(batches, to_host, rows_of=lambda b: b["id"].shape[0]) -> tuple[str, int]:
     """sha256 over every batch's columns (name, then bytes, in name order)
     and the rows seen."""
     h, rows = hashlib.sha256(), 0
@@ -1909,8 +2484,193 @@ def batches_sha(batches, to_host) -> tuple[str, int]:
         for name in sorted(b):
             h.update(name.encode())
             h.update(to_host(b[name]).tobytes())
-        rows += int(b["id"].shape[0])
+        rows += int(rows_of(b))
     return h.hexdigest(), rows
+
+
+def rss_mb() -> float:
+    """This process's resident set now, MB (``/proc/self/statm``, else
+    ``VmRSS``)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+    except (OSError, IndexError, ValueError):
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("VmRSS:"):
+                    return int(ln.split()[1]) / 1024.0
+    raise RuntimeError("this process's resident set cannot be read")
+
+
+class RssPeak:
+    """The peak of :func:`rss_mb` while the block runs, sampled every 10 ms
+    on a thread.  (micro.py reads ``ru_maxrss``, which a process started by
+    fork + exec inherits from its parent, and the card's sandbox shows no
+    ``VmHWM``.)"""
+
+    def __enter__(self):
+        self.start_mb = self.peak_mb = rss_mb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak_mb = max(self.peak_mb, rss_mb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_mb = max(self.peak_mb, rss_mb())
+        return False
+
+
+def counter_value(name: str) -> float:
+    from lakesoul_tpu_torch.obs import registry
+
+    return registry().counter(name).value
+
+
+def loader_replay(torch, t, make_step, count: int, streamed_rows_per_s: float) -> dict:
+    """``bench.py``'s ``train_hbm`` leg on the same table and step: one
+    untimed fill epoch with ``cache="device"``, then the best of
+    REPLAY_EPOCHS replay epochs.  Requires every epoch's rows, replay >=
+    TENSOR_REPLAY_FLOOR x the streamed rows/s, a replay epoch = a streamed
+    epoch by sha256, no host-device sync on a replay epoch; at half the
+    epoch's bytes the spill (a resident prefix + the streamed tail = the
+    streamed epoch, its counters > 0); and permuted replays equal under one
+    seed, a multiset of the stream's rows, in another order the next
+    epoch."""
+    def cached(**kw):
+        return t.scan().batch_size(LOADER_BATCH).to_torch_iter(
+            io_threads=LOADER_IO_THREADS, drop_remainder=False, device=DEVICE,
+            cache="device", **kw)
+
+    def rows_of(b):
+        return b["y"].shape[0]
+
+    step = make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = cached(transform=loader_transform)
+    rows = 0
+    t0 = time.perf_counter()
+    for b in it:
+        step(b["x"].t(), b["y"])
+        rows += int(rows_of(b))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    st = it.stats()["replay"]
+    require(rows == count and st["ready"] and not st["spilled"],
+            f"the fill epoch: {rows} rows, replay stats {st}")
+    epochs = []
+    for _ in range(REPLAY_EPOCHS):
+        rows, loss = 0, None
+        t0 = time.perf_counter()
+        for b in it:
+            loss = step(b["x"].t(), b["y"])
+            rows += int(rows_of(b))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rows == count, f"a replay epoch delivered {rows} rows, not {count}")
+        require(bool(torch.isfinite(loss)), "a non-finite loss in a replay epoch")
+        epochs.append({"rows": rows, "wall_s": wall, "rows_per_s": rows / wall})
+    best = max(e["rows_per_s"] for e in epochs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ratio = best / streamed_rows_per_s
+    require(ratio >= TENSOR_REPLAY_FLOOR,
+            f"replay {best:.0f} rows/s is {ratio:.2f}x the stream, under {TENSOR_REPLAY_FLOOR}x")
+    # no host-device sync on a replay epoch: the debug mode raises on any
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced_rows = sum(int(rows_of(b)) for b in it)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(synced_rows == count, "the sync-checked replay epoch lost rows")
+    to_host = lambda v: v.cpu().numpy()  # noqa: E731
+    replay_sha = batches_sha(it, to_host, rows_of)
+    stream_sha = batches_sha(
+        t.scan().batch_size(LOADER_BATCH).to_torch_iter(
+            transform=loader_transform, io_threads=LOADER_IO_THREADS, drop_remainder=False,
+            device=DEVICE), to_host, rows_of)
+    require(replay_sha == stream_sha, f"a replay epoch != a streamed epoch: {replay_sha} "
+                                      f"{stream_sha}")
+    resident_bytes = st["resident_bytes"]
+    del it
+    torch.cuda.empty_cache()
+
+    # at half the epoch's bytes: a resident prefix, then the streamed tail
+    spilled_before = (counter_value("lakesoul_replay_spilled_batches_total"),
+                      counter_value("lakesoul_replay_spilled_bytes_total"))
+    it = cached(transform=loader_transform, replay_budget_bytes=resident_bytes // 2)
+    rows = sum(int(rows_of(b)) for b in it)
+    sst = it.stats()["replay"]
+    spilled_delta = (counter_value("lakesoul_replay_spilled_batches_total") - spilled_before[0],
+                     counter_value("lakesoul_replay_spilled_bytes_total") - spilled_before[1])
+    t0 = time.perf_counter()
+    spill_sha = batches_sha(it, to_host, rows_of)
+    spill_s = time.perf_counter() - t0
+    require(rows == count and sst["spilled"] and sst["ready"], f"the spill: {sst}")
+    require(all(v > 0 for v in spilled_delta), f"the spill counters did not move: {spilled_delta}")
+    require(spill_sha == stream_sha, f"resident prefix + streamed tail != the stream: "
+                                     f"{spill_sha} {stream_sha}")
+    spill = dict(vars(it._replay.spill))
+    del it
+    torch.cuda.empty_cache()
+
+    # permuted: the rows as the table holds them (the permutation takes the
+    # leading dim, so no transform here), two iterators under one seed
+    def epoch_columns(batches):
+        cols = collections.defaultdict(list)
+        for b in batches:
+            for k, v in b.items():
+                cols[k].append(v)
+        return {k: torch.cat(v) for k, v in cols.items()}
+
+    def by_id(cols):
+        order = torch.argsort(cols["id"])
+        return {k: v[order] for k, v in cols.items()}
+
+    a, b_ = cached(replay_permute=True, replay_seed=SEED), cached(replay_permute=True,
+                                                                 replay_seed=SEED)
+    stream_cols = epoch_columns(a)  # the fill epoch is the stream
+    for _ in b_:
+        pass
+    a1, b1 = epoch_columns(a), epoch_columns(b_)
+    same_seed = all(torch.equal(a1[k], b1[k]) for k in a1)
+    multiset = all(torch.equal(x, y) for x, y in zip(by_id(a1).values(),
+                                                      by_id(stream_cols).values()))
+    del b1, b_
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the permuted replay adds no sync either
+    try:
+        a2 = epoch_columns(a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = not torch.equal(a1["id"], a2["id"])
+    permuted = not torch.equal(a1["id"], stream_cols["id"])
+    n_rows = int(a1["id"].shape[0])
+    require(n_rows == count and same_seed and multiset and moved and permuted,
+            f"permuted replay: rows {n_rows}, same seed {same_seed}, multiset {multiset}, "
+            f"another order next epoch {moved}, permuted {permuted}")
+    del a, a1, a2, stream_cols
+    torch.cuda.empty_cache()
+    return {"fill_epoch_s": fill_s, "replay_epochs": epochs,
+            "hbm_resident_replay_rows_per_s": best, "streamed_rows_per_s": streamed_rows_per_s,
+            "replay_over_stream": ratio, "replay_floor": TENSOR_REPLAY_FLOOR,
+            "resident_bytes": resident_bytes, "resident_batches": st["resident_batches"],
+            "peak_device_gb": peak_gb, "replay_sha256": replay_sha[0],
+            "replay_equals_stream": True, "no_sync_on_replay": True,
+            "spill": {"budget_bytes": resident_bytes // 2, "record": spill,
+                      "resident_batches": sst["resident_batches"],
+                      "resident_rows": sst["resident_rows"],
+                      "spilled_batches_delta": spilled_delta[0],
+                      "spilled_bytes_delta": spilled_delta[1],
+                      "hybrid_epoch_s": spill_s, "prefix_plus_tail_equals_stream": True},
+            "permute": {"seed": SEED, "rows": n_rows, "same_seed_equal": same_seed,
+                        "multiset_of_stream": multiset, "next_epoch_reordered": moved}}
 
 
 def pinned_stats(torch) -> dict:
@@ -2040,6 +2800,9 @@ def phase_loader(torch, M, L, kind: str) -> dict:
         require(got_ring == want, f"with the reuse ring the card's batches != the CPU's: "
                                   f"{got_ring} {want}")
 
+        # bench.py's train_hbm leg: the device replay cache on the same table
+        replay = loader_replay(torch, t, make_step, count, best["rows_per_s"])
+
         # the comparator: pyarrow.dataset -> DataLoader -> the same step
         from torch.utils.data import DataLoader
 
@@ -2086,12 +2849,21 @@ def phase_loader(torch, M, L, kind: str) -> dict:
            "peak_device_bytes": peak_device,
            "peak_pinned_bytes": pinned.get("allocated_bytes.peak"), "pinned": pinned,
            "card_equals_cpu": {"shard": f"0/{LOADER_BUCKETS}", "rows": want[1],
-                               "sha256": want[0], "reuse_ring_too": True}}
+                               "sha256": want[0], "reuse_ring_too": True},
+           "replay": replay, "hbm_resident_replay_rows_per_s":
+               replay["hbm_resident_replay_rows_per_s"],
+           "replay_over_stream": replay["replay_over_stream"]}
     emit("loader", **rec)
     return rec
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    """``chip_smoke.py`` runs every phase; ``--plane-table DIR`` is the
+    4-bit plane's table build leg, which the plane phase starts as a
+    process of its own."""
+    if argv[:1] == ["--plane-table"]:
+        return plane_table_build(argv[1])
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2121,35 +2893,44 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t, sources=list(_build.SOURCES),
          built=sorted(report), ptxas=[k for r in report.values() for k in ptxas_kernels(r["log"])])
 
-    kernels = phase_kernels(torch, K, R)
-    sl = phase_slice(torch, K, R)
-    torch.cuda.empty_cache()
-    ex = phase_ex_slice(torch, K, R)
-    torch.cuda.empty_cache()
-    x, queries = make_plane_data(torch, DEVICE, PLANE_ROWS, N_QUERIES)
-    phase_repro(torch, x)
-    planes, top = {}, None
-    for bits in PLANE_BITS:  # one plane freed before the next is built
-        planes[bits] = phase_plane(torch, K, R, x, queries, bits, top)
-        top = planes[bits]["top"]
-        torch.cuda.empty_cache()
-    del x, queries
-    torch.cuda.empty_cache()
-
-    # 8-10. the training steps (no hand kernel on their path), the MLP's rows
-    # read from a table
     from lakesoul_tpu_torch import models as M
     from lakesoul_tpu_torch.models import convert as C
 
     import lakesoul_tpu_torch as L
 
-    phase_mlp(torch, M, L, kind)
-    phase_resnet50(torch, M, C, kind)
+    kernels = phase_kernels(torch, K, R)
+    sl = phase_slice(torch, K, R)
     torch.cuda.empty_cache()
-    phase_bert_base(torch, M, C, kind)
+    ex = phase_ex_slice(torch, K, R)
+    torch.cuda.empty_cache()
+    planes, top = {}, None
+    x, queries = make_plane_data(torch, DEVICE, PLANE_ROWS, N_QUERIES)
+    phase_repro(torch, x)
+    for bits in PLANE_BITS:  # one plane freed before the next
+        planes[bits] = phase_plane(torch, K, R, x, queries, bits, top)
+        top = planes[bits]["top"]
+        torch.cuda.empty_cache()
+    del x, queries
+    torch.cuda.empty_cache()
+    # the slice's corpus as a table: build_vector_index / vector_search
+    vt = phase_vector_table(torch, K, R, L, kind)
     torch.cuda.empty_cache()
 
-    # 11. the table -> train-step loader (host code: no hand kernel on its path)
+    # 8-10. the training steps (no hand kernel on their path), the MLP's rows
+    # read from a table, ResNet-50 and BERT-base on a fixed batch and fed
+    # from tables
+    phase_mlp(torch, M, L, kind)
+    rn = phase_resnet50(torch, M, C, kind)
+    torch.cuda.empty_cache()
+    phase_resnet50_table(torch, M, L, kind, rn["images_per_s"])
+    torch.cuda.empty_cache()
+    bb = phase_bert_base(torch, M, C, kind)
+    torch.cuda.empty_cache()
+    phase_bert_base_table(torch, M, L, kind, bb)
+    torch.cuda.empty_cache()
+
+    # 11. the table -> train-step loader and its replay cache (host code and
+    # torch ops: no hand kernel on its path)
     phase_loader(torch, M, L, kind)
     torch.cuda.empty_cache()
 
@@ -2158,7 +2939,7 @@ def main() -> int:
                "packed_dot": sl["packed_dot_timing"],
                "ragged_score": {**planes[4]["ragged_timing"],
                                 "one_bit_plane": planes[1]["ragged_timing"]}}
-    paths = [sl, ex, *planes.values()]
+    paths = [sl, ex, *planes.values(), vt]
     record = []
     for name, (source, replaces, library_call) in KERNELS.items():
         t = timings[name]
@@ -2179,4 +2960,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,13 @@
 """Sharded ANN plane (the port of ``lakesoul_tpu/annplane/``): memory-bounded
-multi-shard build, ragged query batching into the ``ragged_score`` CUDA
-kernel, and a micro-batching endpoint with per-request ``nprobe``."""
+multi-shard build (from any vector stream, or from a table's column),
+ragged query batching into the ``ragged_score`` CUDA kernel (the host path
+on the CPU), and a micro-batching endpoint with per-request ``nprobe``."""
 
-from lakesoul_tpu_torch.annplane.build import ShardedAnnBuilder
+from lakesoul_tpu_torch.annplane.build import (
+    ShardedAnnBuilder,
+    build_table_ann_plane,
+    iter_table_vectors,
+)
 from lakesoul_tpu_torch.annplane.config import AnnPlaneConfig
 from lakesoul_tpu_torch.annplane.manifest import PlaneManifestStore
 from lakesoul_tpu_torch.annplane.search import AnnPlane
@@ -14,4 +19,6 @@ __all__ = [
     "PlaneManifestStore",
     "ShardedAnnBuilder",
     "ShardedAnnEndpoint",
+    "build_table_ann_plane",
+    "iter_table_vectors",
 ]

@@ -9,6 +9,12 @@ held; each shard trains, inserts and merges through
 per-shard ``ManifestStore``, and then a plane-level progress record lands
 atomically (manifest.py).
 
+:func:`iter_table_vectors` streams a table's vector column through the
+bounded scan path (``io/reader.py``'s ``iter_scan_unit_batches`` under the
+table's memory budget), and :func:`build_table_ann_plane` builds (or
+resumes) a table's plane from it.  The roots and the per-shard stores take
+local paths or object-store URIs (``storage_options`` as the table's).
+
 Resume contract: the stream must be deterministic.  A restarted builder
 reads the newest plane record, verifies the config digest, SKIPS exactly
 the rows covered by completed shards, and continues with the next shard
@@ -39,11 +45,13 @@ def shard_root(root: str, shard: int) -> str:
 
 
 class ShardedAnnBuilder:
-    def __init__(self, root: str, config: AnnPlaneConfig, *, device=None):
+    def __init__(self, root: str, config: AnnPlaneConfig, *, device=None,
+                 storage_options: dict | None = None):
         self.root = str(root).rstrip("/")
         self.config = config
         self.device = resolve_device(device)
-        self.store = PlaneManifestStore(self.root)
+        self.storage_options = storage_options or {}
+        self.store = PlaneManifestStore(self.root, self.storage_options)
         reg = registry()
         self._c_rows = reg.counter("lakesoul_ann_build_rows_total")
         self._g_shards = reg.gauge("lakesoul_ann_plane_shards")
@@ -173,5 +181,107 @@ class ShardedAnnBuilder:
                     vectors[lo : lo + INSERT_CHUNK_ROWS], ids[lo : lo + INSERT_CHUNK_ROWS]
                 )
             index.merge_deltas()
-        gen = ManifestStore(shard_root(self.root, shard)).write_index(index)
+        store = ManifestStore(shard_root(self.root, shard), self.storage_options)
+        gen = store.write_index(index)
         return {"shard": shard, "num_vectors": int(index.num_vectors), "generation": gen}
+
+
+# ----------------------------------------------------------------- table feed
+def iter_table_vectors(
+    table,
+    column: str,
+    id_column: str,
+    *,
+    batch_size: int = 65_536,
+    memory_budget_bytes: int | None = None,
+    partitions: dict[str, str] | None = None,
+):
+    """Stream ``(vectors, ids)`` (host numpy) from a table column through
+    the bounded scan path (``iter_scan_unit_batches``) — unit order follows
+    the scan plan, so the stream is deterministic and resume-safe."""
+    import pyarrow as pa
+
+    from lakesoul_tpu_torch.io.reader import iter_scan_unit_batches
+    from lakesoul_tpu_torch.vector.builder import extract_vectors
+
+    info = table.info
+    io_cfg = table.io_config()
+    budget = (
+        io_cfg.memory_budget_bytes if memory_budget_bytes is None
+        else memory_budget_bytes
+    )
+    field = info.arrow_schema.field(column)
+    dim = field.type.list_size if hasattr(field.type, "list_size") else None
+    scan = table.scan()
+    if partitions:
+        scan = scan.partitions(partitions)
+    for unit in scan.scan_plan():
+        for batch in iter_scan_unit_batches(
+            unit.data_files,
+            unit.primary_keys,
+            batch_size=batch_size,
+            memory_budget_bytes=budget,
+            file_sizes=getattr(unit, "file_sizes", None),
+            schema=info.arrow_schema,
+            partition_values=unit.partition_values,
+            columns=[column, id_column],
+            storage_options=table.catalog.storage_options,
+        ):
+            t = pa.Table.from_batches([batch])
+            if len(t) == 0:
+                continue
+            if dim is None:
+                first = t.column(column).combine_chunks()
+                dim = len(first[0])
+            yield extract_vectors(t, column, id_column, dim)
+
+
+def build_table_ann_plane(
+    table,
+    column: str,
+    *,
+    root: str | None = None,
+    config: AnnPlaneConfig | None = None,
+    id_column: str | None = None,
+    resume: bool = True,
+    device=None,
+    **cfg_kw,
+) -> dict:
+    """Build (or resume) the plane of a table's vector column on ``device``
+    (``None`` = the CUDA card).  The plane lives beside the table at
+    ``{table_path}/_ann_plane/{column}`` unless ``root`` overrides it."""
+    import pyarrow as pa
+
+    from lakesoul_tpu_torch.vector.config import VectorIndexConfig
+
+    info = table.info
+    if id_column is None:
+        if len(info.primary_keys) != 1:
+            raise VectorIndexError(
+                "ann plane needs id_column= or a single-PK table; table has"
+                f" PK {info.primary_keys}"
+            )
+        id_column = info.primary_keys[0]
+    if config is None:
+        t = info.arrow_schema.field(column).type
+        if pa.types.is_fixed_size_list(t):
+            dim = t.list_size
+        elif "dim" in cfg_kw:
+            dim = cfg_kw.pop("dim")
+        else:
+            raise VectorIndexError("dim required for non-fixed-size-list columns")
+        budget = cfg_kw.pop("shard_budget_bytes", None)
+        keep_raw = cfg_kw.pop("keep_raw", True)
+        config = AnnPlaneConfig(
+            index=VectorIndexConfig(column=column, dim=dim, **cfg_kw),
+            shard_budget_bytes=budget,
+            keep_raw=keep_raw,
+        )
+    if root is None:
+        root = f"{info.table_path}/_ann_plane/{column}"
+    builder = ShardedAnnBuilder(
+        root, config, device=device, storage_options=table.catalog.storage_options
+    )
+    return builder.build(
+        iter_table_vectors(table, column, id_column), resume=resume
+    )

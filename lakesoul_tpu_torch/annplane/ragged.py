@@ -20,9 +20,14 @@ tensors on a CUDA device, which replaces ``ragged_score_pallas`` →
 ``ragged_score_jnp``) only for tensors on the CPU.  On the card the items
 are first grouped by tile (:func:`group_items_by_tile`, a few torch ops on
 the device), so the kernel stages each probed tile once for every query
-that probes it, as the reference's host path ``ragged_topk_host`` groups
-its products by cluster.  The reference's pow2 padding of M and Q bounded
-TPU compiles and is dropped.
+that probes it, as the reference's host path groups its products by
+cluster.  The reference's pow2 padding of M and Q bounded TPU compiles and
+is dropped.
+
+:func:`ragged_topk_host` is the reference's host path, which a plane opened
+on the CPU runs where the native library is built: its scan + per-query
+top-``s`` in one call (``native.ann_ragged_topk``).  Same math as the item
+path, without tile padding.
 """
 
 from __future__ import annotations
@@ -219,3 +224,50 @@ def items_topk(est: torch.Tensor, item_q, item_tile, nq: int, s: int, *, tile: i
     out_est[:, :k] = torch.where(valid, vals, float("inf"))
     out_rows[:, :k] = torch.where(valid, rows, -1)
     return out_rows, out_est
+
+
+# --------------------------------------------------------------------------
+# host path: the native library's scan + per-query top-s
+# --------------------------------------------------------------------------
+
+
+def ragged_topk_host(
+    codes, a, b, h, row_start, row_count,
+    pairs_q, pairs_c, csq, csum, q_glob, nq: int, s: int,
+):
+    """Per-query top-``s`` estimator candidates on the host (numpy in, numpy
+    out; the reference's ``ragged_topk_host`` through its native branch).
+
+    The native library runs the whole scan + top-``s`` in one GIL-released
+    call, each probed cluster's codes touched once against the queries that
+    probed it.  Returns (rows [nq, s'] int64 with -1 holes, est [nq, s'] f32
+    with +inf holes), ``s' = min(s, rows of the shard)``, shortlist order
+    unspecified.  Needs ``native.available()``; without the library a CPU
+    plane runs the item path."""
+    from lakesoul_tpu_torch import native
+
+    if not native.available():
+        raise RuntimeError("ragged_topk_host needs the native library")
+    pairs_q = np.asarray(pairs_q, np.int64)
+    pairs_c = np.asarray(pairs_c, np.int64)
+    csq = np.asarray(csq, np.float32)
+    csum = np.asarray(csum, np.float32)
+    row_start = np.asarray(row_start, np.int64)
+    row_count = np.asarray(row_count, np.int64)
+    s = min(int(s), max(1, int(row_count.sum())))
+    if not len(pairs_q):
+        return np.full((nq, s), -1, np.int64), np.full((nq, s), np.inf, np.float32)
+    corder = np.argsort(pairs_c, kind="stable")
+    uniq, grp_start = np.unique(pairs_c[corder], return_index=True)
+    grp_off = np.append(grp_start, len(corder)).astype(np.int64)
+    use_csum = bool(np.any(h)) and bool(np.any(csum))
+    return native.ann_ragged_topk(
+        codes, a, b, h if use_csum else None,
+        row_start, row_count,
+        np.ascontiguousarray(q_glob, np.float32),
+        uniq.astype(np.int32), grp_off,
+        np.ascontiguousarray(pairs_q[corder], np.int32),
+        np.ascontiguousarray(csq[corder], np.float32),
+        np.ascontiguousarray(csum[corder], np.float32) if use_csum else None,
+        s,
+    )

@@ -28,8 +28,12 @@ of a float32 sum — by the batch's shape (a batch of one runs a gemv), and a
 last-bit change at the probe or shortlist boundary changes which rows a
 query sees.  The item kernel computes each item alone, so it is invariant.
 
-Shards run one after another on the current CUDA stream.  The reference's
-host paths (``ragged_topk_host`` and the native re-rank) are not ported.
+Shards run one after another on the current CUDA stream.  A plane opened
+on the CPU takes the reference's host path where the native library is
+built, chosen by the plane's device: :func:`ragged_topk_host` for the
+shortlist and the native exact re-rank, as the reference's CPU plane does.
+Without the library it runs the item path and the float64 re-rank, as the
+card does, on the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from lakesoul_tpu_torch import native
 from lakesoul_tpu_torch.annplane.config import AnnPlaneConfig
 from lakesoul_tpu_torch.annplane.manifest import PlaneManifestStore
 from lakesoul_tpu_torch.annplane.ragged import (
@@ -48,6 +53,7 @@ from lakesoul_tpu_torch.annplane.ragged import (
     items_topk,
     plan_items,
     ragged_score,
+    ragged_topk_host,
 )
 from lakesoul_tpu_torch.device import resolve_device
 from lakesoul_tpu_torch.errors import VectorIndexError
@@ -171,13 +177,15 @@ class AnnPlane:
 
     # ------------------------------------------------------------------- load
     @classmethod
-    def open(cls, root: str, *, device=None, tile: int = TILE) -> "AnnPlane":
-        """Load a complete plane directory (written by either package); each
-        shard at the generation the plane record pinned."""
+    def open(cls, root: str, storage_options: dict | None = None, *, device=None,
+             tile: int = TILE) -> "AnnPlane":
+        """Load a complete plane directory (written by either package; a
+        local path or an object-store URI); each shard at the generation the
+        plane record pinned."""
         from lakesoul_tpu_torch.annplane.build import shard_root
 
         dev = resolve_device(device)
-        manifest = PlaneManifestStore(root).read()
+        manifest = PlaneManifestStore(root, storage_options).read()
         if manifest is None:
             raise VectorIndexError(f"no ANN plane at {root}")
         if not manifest.get("complete"):
@@ -196,7 +204,8 @@ class AnnPlane:
         # moving pointers would mix generations into one plane
         shards = [
             _ShardResident(
-                ManifestStore(shard_root(root, e["shard"])).read_at(e["generation"], device=dev),
+                ManifestStore(shard_root(root, e["shard"]), storage_options).read_at(
+                    e["generation"], device=dev),
                 tile=tile,
             )
             for e in manifest["shards"]
@@ -292,7 +301,16 @@ class AnnPlane:
     # ------------------------------------------------------------- internals
     def _score_shard(self, shard, q_glob, pairs_q, pairs_lc, csq, csum, nq: int, s: int):
         """Estimator top-``s`` rows of one shard for every query of the
-        batch: (rows [nq, s] with -1 holes, est [nq, s] with +inf holes)."""
+        batch: (rows [nq, s] with -1 holes, est [nq, s] with +inf holes).
+        On the card: the item tables into ``ragged_score``; on the CPU with
+        the native library: the reference's host path."""
+        if self.device.type == "cpu" and native.available():
+            rows, est = ragged_topk_host(
+                shard.codes.numpy(), shard.a.numpy(), shard.b.numpy(), shard.h.numpy(),
+                shard.row_start, shard.row_count, pairs_q, pairs_lc, csq, csum,
+                q_glob.numpy(), nq, s,
+            )
+            return torch.from_numpy(rows), torch.from_numpy(est)
         item_q, item_tile, icsq, icsum = plan_items(
             pairs_q, pairs_lc, csq, csum, shard.tile_start, shard.tile_count
         )
@@ -303,8 +321,13 @@ class AnnPlane:
     @staticmethod
     def _rerank_shard(shard, queries, rows, est):
         """Exact distances of one shard's candidate rows (raw kept), else the
-        estimator distances pass through; -1 rows stay +inf holes."""
+        estimator distances pass through; -1 rows stay +inf holes.  On the
+        CPU with the native library: its re-rank, as the reference's."""
         if shard.raw is None:
             return est
+        if rows.device.type == "cpu" and native.available():
+            r = np.ascontiguousarray(rows.numpy(), np.int64)
+            return torch.from_numpy(
+                native.ann_exact_rerank(shard.raw.numpy(), r, queries.numpy()))
         exact = exact_distances(shard.raw[rows.clamp_min(0)].double(), queries.double())
         return exact.float().masked_fill(rows < 0, float("inf"))

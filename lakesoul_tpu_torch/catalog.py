@@ -7,10 +7,12 @@ select/filter/shard, and delivery into PyTorch: ``to_torch_iter`` (fixed-size
 batches on the CUDA card, through pinned buffers and a side stream) beside
 the reference's ``to_torch`` dataset adapter.
 
-The port's copy of ``lakesoul_tpu/catalog.py``.  Layers that are not ported
-yet raise :class:`ConfigError` where the reference imports them lazily: the
-vector-index builder, string filters (``sql.parser``), ``via_scanplane``,
-``follow`` and ``to_huggingface``.
+The port's copy of ``lakesoul_tpu/catalog.py``.  The table vector index
+(``build_vector_index``, ``vector_search``, ``scan().vector_search``) runs on
+the card unless ``device="cpu"`` is passed.  Layers that are not ported yet
+raise :class:`ConfigError` where the reference imports them lazily: string
+filters (``sql.parser``), ``via_scanplane``, ``follow`` and
+``to_huggingface``.
 """
 
 from __future__ import annotations
@@ -645,11 +647,14 @@ class LakeSoulTable:
         return count
 
     # ---------------------------------------------------------- vector index
-    def build_vector_index(self, column: str, **config_kwargs) -> int:
+    def build_vector_index(self, column: str, *, device=None, **config_kwargs) -> int:
         """Train+persist per-(partition, bucket) ANN shards for a vector
-        column (reference: LakeSoulTable.build_vector_index, catalog.py:496).
-        Returns the number of vectors indexed."""
-        raise ConfigError("the table vector-index builder is not ported yet")
+        column (reference: LakeSoulTable.build_vector_index, catalog.py:496),
+        on ``device`` (``None`` = the CUDA card).  Returns the number of
+        vectors indexed."""
+        from lakesoul_tpu_torch.vector.builder import build_table_vector_index
+
+        return build_table_vector_index(self, column, device=device, **config_kwargs)
 
     def vector_search(
         self,
@@ -659,9 +664,18 @@ class LakeSoulTable:
         top_k: int = 10,
         nprobe: int = 8,
         partitions: dict[str, str] | None = None,
+        device=None,
+        index=None,
     ):
-        """ANN search → (pk ids, distances), nearest first."""
-        raise ConfigError("the table vector-index search is not ported yet")
+        """ANN search → (pk ids, distances), nearest first, on ``device``
+        (``None`` = the CUDA card); ``index`` (a ``TableVectorIndex``) keeps
+        the opened shards across searches."""
+        from lakesoul_tpu_torch.vector.builder import search_table_vector_index
+
+        return search_table_vector_index(
+            self, column, query, top_k=top_k, nprobe=nprobe, partitions=partitions,
+            device=device, index=index,
+        )
 
     # ------------------------------------------------------------------ scan
     def scan(self) -> "LakeSoulScan":
@@ -799,7 +813,8 @@ class LakeSoulScan:
             # unlimited scan, so the cache holds (and shares) the full result
         )
 
-    def vector_search(self, column: str, query, *, top_k: int = 10, nprobe: int = 8) -> "LakeSoulScan":
+    def vector_search(self, column: str, query, *, top_k: int = 10, nprobe: int = 8,
+                      device=None, index=None) -> "LakeSoulScan":
         """ANN-filtered scan: search the table's index shards and inject a
         ``pk IN (matched ids)`` filter, so the scan returns the matching rows
         through the normal MOR path (reference:
@@ -808,7 +823,8 @@ class LakeSoulScan:
         Lazy like every other builder method: the search executes at read
         time, so partition filters chained before OR after this call narrow
         which shards are searched."""
-        return self._replace(_vector_search=(column, query, int(top_k), int(nprobe)))
+        return self._replace(
+            _vector_search=(column, query, int(top_k), int(nprobe), device, index))
 
     def _resolve_vector_search(self) -> "LakeSoulScan":
         if self._vector_search is None:
@@ -818,10 +834,10 @@ class LakeSoulScan:
                 "vector_search cannot be combined with snapshot/incremental scans:"
                 " index shards always reflect the latest table state"
             )
-        column, query, top_k, nprobe = self._vector_search
+        column, query, top_k, nprobe, device, index = self._vector_search
         ids, _ = self._table.vector_search(
             column, query, top_k=top_k, nprobe=nprobe,
-            partitions=self._partitions or None,
+            partitions=self._partitions or None, device=device, index=index,
         )
         pk = self._table.info.primary_keys[0]
         resolved = self._replace(_vector_search=None)
@@ -884,7 +900,7 @@ class LakeSoulScan:
             ),
         }
         if self._vector_search is not None:
-            col, _, top_k, nprobe = self._vector_search
+            col, _, top_k, nprobe, _, _ = self._vector_search
             out["vector_search"] = {"column": col, "top_k": top_k, "nprobe": nprobe}
             out["note"] = "vector search resolves at read time to a pk IN filter"
             return out

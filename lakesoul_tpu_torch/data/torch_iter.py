@@ -40,10 +40,19 @@ The device half replaces ``jax.device_put``:
   off).  A string (object) leaf cannot go to a device and raises
   :class:`ConfigError` naming its column.
 
+Replay: ``cache="device"`` pins the delivered batches of the first
+complete epoch in device memory (:mod:`lakesoul_tpu_torch.tensorplane.replay`)
+and serves later epochs from there, with no decode, merge, collate or H2D
+copy.  On the card a cached batch is the side-stream copy's output after
+the consumer's stream waited on it, and every copy of the epoch has
+completed by the time the cache seals (the epoch's last events are
+synchronized); a replayed leaf is ``record_stream``-ed on the consumer's
+current stream, and nothing on the replay path synchronizes or reads back.
+The consumer always gets fresh containers, never the dict the cache holds.
+
 Sharding: ``LakeSoulScan.shard()/auto_shard()`` (or ``multihost=True``)
 splits scan units across processes.  ``sharding=`` (a jax placement) has no
-meaning here and raises, and so does ``cache="device"`` (the device replay
-cache is not ported yet).
+meaning here and raises.
 """
 
 from __future__ import annotations
@@ -63,6 +72,11 @@ from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.obs import registry
 from lakesoul_tpu_torch.obs.stages import stage_histogram
 from lakesoul_tpu_torch.runtime import pipeline as rt_pipeline
+from lakesoul_tpu_torch.tensorplane.replay import (
+    DeviceReplayCache,
+    _map_leaves,
+    fresh_containers,
+)
 
 
 class LoaderStats:
@@ -479,20 +493,6 @@ def _is_pinned(arr: np.ndarray) -> bool:
     return isinstance(owner, torch.Tensor) and owner.is_pinned()
 
 
-def _map_leaves(fn: Callable[[Any, str], Any], tree, path: str = ""):
-    """``fn(leaf, path)`` over a pytree of dicts, lists and tuples (the
-    port's stand-in for ``jax.tree_util.tree_map``); ``path`` names the
-    leaf (its column, for a collated batch)."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v, f"{path}.{k}" if path else str(k)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_map_leaves(fn, v, f"{path}[{i}]") for i, v in enumerate(tree)]
-        if isinstance(tree, list):
-            return out
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return fn(tree, path)
-
-
 def _numeric_leaf(x, name: str):
     """A leaf as a tensor or a numeric numpy array; a string or object leaf
     raises, naming its column (the reference's ``device_put`` rejects it
@@ -556,8 +556,23 @@ class TorchBatchIterator:
         io_threads: decode scan units on this many threads (multi-core hosts;
             see LakeSoulScan.to_batches).
         checkpoint: a :class:`LoaderCheckpoint` to resume from and advance.
-        cache: ``"device"`` (the device replay cache) is not ported yet and
-            raises.
+        cache: ``"device"`` pins delivered batches in device memory on the
+            first complete epoch (a
+            :class:`~lakesoul_tpu_torch.tensorplane.replay.DeviceReplayCache`);
+            re-iterating then replays them with no storage, host or link
+            traffic.  Budgeted (``replay_budget_bytes`` /
+            ``LAKESOUL_REPLAY_BUDGET_BYTES``): past the budget the cache
+            records a typed, metered spill and later epochs replay the
+            resident prefix then re-stream only the tail.  An epoch
+            abandoned early leaves the cache unfilled (partial replay would
+            silently drop data).
+        replay_budget_bytes: device-memory budget for ``cache='device'``
+            (default: the env var, else unbounded).
+        replay_permute: re-permute the resident epoch on the device each
+            replay (seeded; batch order + on-device row permutation) —
+            only honoured while fully resident, a spilled cache replays
+            in stream order.
+        replay_seed: seed pinning the permutation schedule.
         consumer: attribution tag for this loader's ``queue`` stall series
             (``lakesoul_scan_stage_seconds{stage=queue,consumer=...}``).
             Default ``"local"``.
@@ -585,6 +600,9 @@ class TorchBatchIterator:
         io_threads: int | None = None,
         checkpoint: "LoaderCheckpoint | None" = None,
         cache: str | None = None,
+        replay_budget_bytes: int | None = None,
+        replay_permute: bool = False,
+        replay_seed: int = 0,
         consumer: str | None = None,
         follow=None,
         multihost: bool = False,
@@ -594,20 +612,56 @@ class TorchBatchIterator:
                 "sharding= is a jax placement and has no meaning in the PyTorch"
                 " port; shard the scan (shard()/auto_shard()/multihost=True)"
             )
-        if cache is not None:
-            if cache != "device":
-                raise ConfigError(f"unknown cache mode {cache!r}; expected 'device'")
-            raise ConfigError("cache='device' (the device replay cache) is not ported yet")
+        if cache not in (None, "device"):
+            raise ConfigError(f"unknown cache mode {cache!r}; expected 'device'")
+        if cache != "device" and (
+            replay_budget_bytes is not None or replay_permute or replay_seed
+        ):
+            # a replay knob without the replay cache must not silently train
+            # un-permuted / un-budgeted
+            raise ConfigError(
+                "replay_budget_bytes/replay_permute/replay_seed require"
+                " cache='device'"
+            )
         if follow is not None and follow is not False:
+            if checkpoint is not None:
+                raise ConfigError(
+                    "follow and checkpoint are mutually exclusive: the"
+                    " follower carries its own exactly-once position"
+                    " (follow_state_json)"
+                )
+            if cache == "device":
+                raise ConfigError(
+                    "cache='device' cannot cache an unbounded follow stream"
+                )
             from lakesoul_tpu_torch.data.batch_source import batch_source_for
 
             batch_source_for(scan, follow=follow)  # raises: not ported yet
+        if cache == "device" and checkpoint is not None:
+            # a replayed epoch never touches the input stream, so a loader
+            # checkpoint could not represent its position
+            raise ConfigError("cache='device' and checkpoint are mutually exclusive")
+        if cache == "device" and not device_put:
+            raise ConfigError("cache='device' requires device_put=True")
         if multihost:
-            # shard BEFORE anything else resolves the scan: the plan digest
-            # and checkpoint must see the local host's shard
+            # shard BEFORE anything else resolves the scan: the plan digest,
+            # replay cache and checkpoint must see the local host's shard
             from lakesoul_tpu_torch.fleet.multihost import shard_scan
 
             scan = shard_scan(scan)
+        self._replay: DeviceReplayCache | None = None
+        # exactly ONE active generator may fill the shared cache: two
+        # interleaved iterations of the same loader would both offer into
+        # it, sealing a doubled epoch or tripping offer()-after-seal
+        # mid-stream — the first streaming generator claims the fill, later
+        # concurrent ones stream plain
+        self._fill_claimed = False
+        if cache == "device":
+            self._replay = DeviceReplayCache(
+                budget_bytes=replay_budget_bytes,
+                permute=replay_permute,
+                seed=replay_seed,
+            )
         self._device = resolve_device(device) if device_put else None
         # the collate writes pinned memory only for a copy to the card
         self._pin = self._device is not None and self._device.type == "cuda"
@@ -633,7 +687,10 @@ class TorchBatchIterator:
         # pinned slots are reused once their copy's event has completed).
         # On the CPU a delivered tensor aliases its collate buffer, so the
         # ring stays down there, as the reference keeps it down where
-        # device_put aliases.
+        # device_put aliases — a batch the replay cache holds must own its
+        # bytes.  On the card a cached batch is the copy's device tensors,
+        # which own theirs, so the pinned slots may be reused under
+        # cache='device' too.
         self._ring: _BufferRing | None = None
         if (
             collate_fn is None
@@ -684,18 +741,33 @@ class TorchBatchIterator:
     def stats(self) -> dict:
         """Loader telemetry snapshot: rows/batches (+ per-sec over in-epoch
         wall time), epochs, per-epoch row totals, consumer stall seconds,
-        and current producer-queue depth.  Cheap enough to read every
-        step."""
-        return self._stats.snapshot()
+        and current producer-queue depth — plus the replay cache's
+        residency stats under ``"replay"`` in cache='device' mode.  Cheap
+        enough to read every step."""
+        snap = self._stats.snapshot()
+        if self._replay is not None:
+            snap["replay"] = self._replay.stats()
+        return snap
+
+    @property
+    def _device_cached(self):
+        """The resident (rows, batch) list while a fully-resident cache is
+        serving, else None."""
+        if self._replay is not None and self._replay.ready \
+                and not self._replay.spilled:
+            return self._replay._batches
+        return None
 
     # ------------------------------------------------------------- pipeline
-    def _epoch_windows(self) -> "Iterator[_Window]":
+    def _epoch_windows(self, extra_skip: int = 0) -> "Iterator[_Window]":
         """Fixed-size row windows over one epoch's scan (the pipeline
         source).  Resume: the scan's unit order is deterministic, so the
         checkpoint's delivered-row count is a complete position; the scan
         skips whole units via metadata row counts without decoding them and
-        decode-discards only the residual prefix of one unit."""
-        skip = self._checkpoint.rows_delivered if self._checkpoint else 0
+        decode-discards only the residual prefix of one unit.
+        ``extra_skip`` is the spilled-replay tail resume: the resident
+        prefix rows the cache already serves from device memory."""
+        skip = (self._checkpoint.rows_delivered if self._checkpoint else 0) + extra_skip
         rb = _Rebatcher(
             self._scan._batch_size,
             capture_views=self._collate is _default_collate,
@@ -716,13 +788,13 @@ class TorchBatchIterator:
             if tail is not None:
                 yield tail
 
-    def _host_pipeline(self):
+    def _host_pipeline(self, extra_skip: int = 0):
         """One epoch's host pipeline on the shared runtime: scan windows →
         collate/transform → bounded prefetch pump.  Items are
         ``(rows, host batch, ring slot or None)``."""
         return (
             rt_pipeline("loader")
-            .source(self._epoch_windows())
+            .source(self._epoch_windows(extra_skip))
             .map(self._host_batch, name="collate")
             .prefetch(self._prefetch, name="prefetch")
             .run()
@@ -748,12 +820,56 @@ class TorchBatchIterator:
         return len(window), batch, slot
 
     def __iter__(self):
+        if self._replay is not None and self._replay.ready:
+            # steady state: replay the device-resident epoch — no storage,
+            # no host pipeline, no link traffic; a spilled cache replays its
+            # resident prefix then re-streams ONLY the tail (the offers
+            # stopped at the first budget rejection, so the prefix is
+            # contiguous and `resident_rows` is an exact resume position)
+            self._stats.epoch_begin()
+            completed = False
+            try:
+                for rows, b in self._replay.replay():
+                    self._stats.delivered(rows, 0.0, 0)
+                    self._rows_out += rows
+                    yield self._replayed(b)
+                if self._replay.spilled:
+                    completed = yield from self._deliver_stream(
+                        extra_skip=self._replay.resident_rows
+                    )
+                else:
+                    completed = True
+            finally:
+                self._stats.epoch_end(completed)
+            return
         self._stats.epoch_begin()
         completed = False
+        filling = self._replay is not None and not self._fill_claimed
+        if filling:
+            self._fill_claimed = True
         try:
-            completed = yield from self._deliver_stream()
+            offer = self._replay.offer if filling else None
+            completed = yield from self._deliver_stream(offer=offer)
+            if completed and filling:
+                # only a COMPLETE epoch becomes the resident cache: an
+                # abandoned iteration (consumer break → GeneratorExit)
+                # never reaches here
+                self._replay.seal()
         finally:
+            if filling:
+                if not self._replay.ready:
+                    self._replay.abandon()
+                self._fill_claimed = False
             self._stats.epoch_end(completed)
+
+    def _replayed(self, batch):
+        """A cached batch for the consumer: fresh containers, and on the
+        card each leaf tied to the consumer's current stream (bookkeeping
+        for the caching allocator, no sync)."""
+        if self._pin:
+            current = torch.cuda.current_stream(self._device)
+            _map_leaves(lambda t, _: t.record_stream(current) if t.is_cuda else None, batch)
+        return fresh_containers(batch)
 
     def _put_cuda(self, host_batch, slot, inflight: deque):
         """Dispatch the batch's H2D copies on the side stream and record one
@@ -789,11 +905,15 @@ class TorchBatchIterator:
         _map_leaves(lambda t, _: t.record_stream(current) if t.is_cuda else None, out)
         return out
 
-    def _deliver_stream(self):
+    def _deliver_stream(self, extra_skip: int = 0, offer=None):
         """One streaming epoch: host pipeline → (device copy double buffer)
         → consumer.  Returns True when the pipeline ran to exhaustion AND
-        every batch reached the consumer."""
-        pipe = self._host_pipeline()
+        every batch reached the consumer.  ``offer`` is the replay cache's
+        pin hook, called with each batch as the consumer gets it (on the
+        card: after its stream waited on the copy); a pinned batch is
+        handed to the consumer as fresh containers so in-place mutation
+        cannot poison the cached epoch."""
+        pipe = self._host_pipeline(extra_skip)
         produced_all = False  # the pipeline ran to exhaustion
 
         def host_iter():
@@ -838,6 +958,14 @@ class TorchBatchIterator:
             put = lambda b, slot: _map_leaves(_cpu_leaf, b)  # noqa: E731
             ready = lambda out: out  # noqa: E731
         h_put = self._h_device_put
+
+        def emit(r, b):
+            delivered(r)
+            b = ready(b)
+            if offer is not None and offer(r, b):
+                return fresh_containers(b)  # the cache keeps the pristine one
+            return b
+
         try:
             # double buffering: keep device_prefetch copies in flight so the
             # H2D copy of batch k+1 overlaps the step on batch k
@@ -847,13 +975,9 @@ class TorchBatchIterator:
                 buf.append((rows, put(host_batch, slot)))
                 h_put.observe(time.perf_counter() - t0)
                 if len(buf) > self._device_prefetch:
-                    r, b = buf.popleft()
-                    delivered(r)
-                    yield ready(b)
+                    yield emit(*buf.popleft())
             while buf:
-                r, b = buf.popleft()
-                delivered(r)
-                yield ready(b)
+                yield emit(*buf.popleft())
         finally:
             # the epoch's last copies may still read pinned memory that the
             # next epoch's collate would be handed again

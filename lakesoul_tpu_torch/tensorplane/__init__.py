@@ -1,9 +1,9 @@
 """Tensor plane of the port: fixed-shape tensor column declarations
-(:mod:`columns`, a copy of ``lakesoul_tpu/tensorplane/columns.py``).  The
-writer validates declared columns with them and the loader reshapes to the
+(:mod:`columns`, a copy of ``lakesoul_tpu/tensorplane/columns.py``) and the
+device replay cache (:mod:`replay`, ``to_torch_iter(cache="device")``).
+The writer validates declared columns and the loader reshapes to the
 declared shapes.  The reference's DLPack hand-off is replaced by the
-loader's pinned side-stream copy (``data/torch_iter.py``); its device replay
-cache is not ported yet."""
+loader's pinned side-stream copy (``data/torch_iter.py``)."""
 
 from lakesoul_tpu_torch.tensorplane.columns import (
     TensorSpec,
@@ -12,8 +12,12 @@ from lakesoul_tpu_torch.tensorplane.columns import (
     tensor_specs,
     validate_tensor_batch,
 )
+from lakesoul_tpu_torch.tensorplane.replay import ENV_BUDGET, DeviceReplayCache, ReplaySpill
 
 __all__ = [
+    "DeviceReplayCache",
+    "ENV_BUDGET",
+    "ReplaySpill",
     "TensorSpec",
     "tensor_field",
     "tensor_shape_of",

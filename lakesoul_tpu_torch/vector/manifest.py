@@ -1,13 +1,16 @@
-"""Versioned vector-index store on a local filesystem (the port of
-``lakesoul_tpu/vector/manifest.py``'s ``ManifestStore``).
+"""Versioned vector-index store on a filesystem or an object store (the
+port of ``lakesoul_tpu/vector/manifest.py``'s ``ManifestStore``).
 
 Layout as the JAX package's: a ``LATEST`` pointer →
 ``manifests/manifest-<gen>.json`` → npz segment files
 (``segments/cluster_<c>.gen<gen>[.delta_<i>].seg``, fields codes / norms /
 factors / ids / code_dot_c / raw, and scales for ex-codes), every blob
-CRC32-wrapped, so either package reads what the other writes.  It is the on-disk form of
-:meth:`IvfRabitqIndex.state`.  Every blob is published atomically
-(``runtime/atomicio.py``).  Object-store URIs are not supported yet."""
+CRC32-wrapped, so either package reads what the other writes.  It is the
+on-disk form of :meth:`IvfRabitqIndex.state`.  The root may be a local path
+or any URI ``io/object_store.py`` resolves (``storage_options`` as the
+table's); every blob is published atomically (``runtime/atomicio.py``).
+``indexed_files`` records which table data files a shard covers, so an
+incremental build inserts only the new ones."""
 
 from __future__ import annotations
 
@@ -15,12 +18,12 @@ import dataclasses
 import io
 import json
 import zlib
-from pathlib import Path
 
 import numpy as np
 
 from lakesoul_tpu_torch.errors import VectorIndexError
-from lakesoul_tpu_torch.runtime.atomicio import publish_bytes
+from lakesoul_tpu_torch.io.object_store import ensure_dir, filesystem_for
+from lakesoul_tpu_torch.runtime.atomicio import publish_bytes_fs
 from lakesoul_tpu_torch.vector.config import VectorIndexConfig
 from lakesoul_tpu_torch.vector.index import IvfRabitqIndex
 
@@ -42,20 +45,22 @@ def _crc_unwrap(blob: bytes, what: str) -> bytes:
 
 
 class ManifestStore:
-    """An index directory on the local filesystem."""
+    """An index directory: a local path or an object-store URI."""
 
-    def __init__(self, root: str | Path):
-        root = str(root)
-        if "://" in root and not root.startswith("file://"):
-            raise VectorIndexError(f"only local index directories are supported yet, not {root!r}")
-        self.root = Path(root.removeprefix("file://"))
+    def __init__(self, root, storage_options: dict | None = None):
+        self.root = str(root).rstrip("/")
+        self.storage_options = storage_options or {}
+        self.fs, self.root_path = filesystem_for(self.root, self.storage_options, write=True)
 
     # ------------------------------------------------------------------ write
-    def write_index(self, index: IvfRabitqIndex) -> int:
+    def write_index(self, index: IvfRabitqIndex, *,
+                    indexed_files: list[str] | None = None) -> int:
         """Persist ``index`` as the next generation and swap ``LATEST`` to
-        it; returns the generation."""
-        (self.root / "manifests").mkdir(parents=True, exist_ok=True)
-        (self.root / "segments").mkdir(parents=True, exist_ok=True)
+        it; returns the generation.  ``indexed_files`` records which table
+        data files this shard covers, enabling incremental refresh (only
+        new files are inserted)."""
+        ensure_dir(f"{self.root}/manifests", self.storage_options)
+        ensure_dir(f"{self.root}/segments", self.storage_options)
         generation = self.latest_generation() + 1
         state = index.state()
         base = []
@@ -77,7 +82,7 @@ class ManifestStore:
             "centroids": None if state["centroids"] is None else state["centroids"].tolist(),
             "base_segments": base,
             "delta_segments": delta,
-            "indexed_files": [],  # the table feed that fills it is not ported
+            "indexed_files": sorted(indexed_files or []),
         }
         mpath = f"manifests/manifest-{generation}.json"
         self._write_blob(mpath, _crc_wrap(json.dumps(manifest).encode()))
@@ -92,14 +97,15 @@ class ManifestStore:
     def _write_blob(self, rel: str, data: bytes) -> None:
         # LATEST is overwritten by every write_index: a torn overwrite would
         # make the whole store unreadable, so every blob is published whole
-        publish_bytes(self.root / rel, data)
+        publish_bytes_fs(self.fs, f"{self.root_path}/{rel}", data)
 
     # ------------------------------------------------------------------- read
     def _read_blob(self, rel: str) -> bytes:
-        return (self.root / rel).read_bytes()
+        with self.fs.open(f"{self.root_path}/{rel}", "rb") as f:
+            return f.read()
 
     def exists(self) -> bool:
-        return (self.root / LATEST).exists()
+        return self.fs.exists(f"{self.root_path}/{LATEST}")
 
     def latest_generation(self) -> int:
         try:

@@ -604,8 +604,10 @@ class TestServing:
                                 max_wait_ms=5.0, max_pending=16, name="port-plane-shed")
         sheds = [0] * 64
         errors = []
+        start = threading.Barrier(64)  # the 64 clients' first requests arrive together
 
         def client(ci):
+            start.wait()
             for j in range(4):
                 try:
                     ep.search(queries[(ci + j) % len(queries)], timeout=60)

@@ -5,8 +5,11 @@ Two checks: a static scan of every import statement, and a subprocess in
 which a meta-path finder makes ``jax``, ``jaxlib`` and ``lakesoul_tpu``
 unimportable while every port module is imported, a tiny index is built
 and searched on the CPU, and so is a tiny two-shard ANN plane, the MLP,
-ResNet and BERT each take one tiny train step, and a tiny primary-key table
-is created, written, upserted and read through ``to_torch_iter``.  It has to be a subprocess: ``tests/conftest.py``
+ResNet and BERT each take one tiny train step, a tiny primary-key table is
+created, written, upserted and read through ``to_torch_iter`` (a streamed
+epoch, then a replayed one with ``cache="device"``), and a tiny vector
+table is indexed (``build_vector_index``) and searched (``vector_search``,
+``scan().vector_search``).  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -120,6 +123,22 @@ _CHILD = textwrap.dedent(
     got = [b for b in tbl.scan().batch_size(16).to_torch_iter(device="cpu", drop_remainder=False)]
     assert sum(len(b["id"]) for b in got) == 50, got
     assert float(sum(b["v"][b["id"] < 5].abs().sum() for b in got)) == 0.0
+    it = tbl.scan().batch_size(16).to_torch_iter(device="cpu", cache="device",
+                                                 drop_remainder=False)
+    first = [b["id"].clone() for b in it]
+    replayed = [b["id"].clone() for b in it]
+    assert it.stats()["replay"]["ready"] and it.stats()["replay"]["epochs_served"] == 1
+    assert [r.tolist() for r in replayed] == [f.tolist() for f in first]
+    vschema = pa.schema([("id", pa.int64()), ("emb", pa.list_(pa.float32(), 24))])
+    vt = cat.create_table("vecs", vschema, primary_keys=["id"], hash_bucket_num=2)
+    vt.write_arrow(pa.table({"id": np.arange(400, dtype=np.int64),
+                             "emb": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), 24)},
+                            schema=vschema))
+    assert vt.build_vector_index("emb", nlist=4, device="cpu") == 400
+    vids, _ = vt.vector_search("emb", x[7], top_k=3, nprobe=4, device="cpu")
+    assert int(vids[0]) == 7, vids
+    rows = vt.scan().vector_search("emb", x[7], top_k=3, nprobe=4, device="cpu").to_arrow()
+    assert 7 in rows.column("id").to_pylist()
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root),
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

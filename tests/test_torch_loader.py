@@ -194,7 +194,8 @@ def test_a_string_leaf_to_a_device_raises_naming_its_column(tmp_path):
     assert b["name"].dtype == object
 
 
-@pytest.mark.parametrize("kw", [{"sharding": object()}, {"cache": "device"}, {"follow": True}],
+@pytest.mark.parametrize("kw", [{"sharding": object()}, {"cache": "device", "device_put": False},
+                                {"follow": True}],
                          ids=["sharding", "cache_device", "follow"])
 def test_options_the_port_does_not_take_raise(tmp_path, kw):
     _, port = _scans(_write(tmp_path, "plain"))
