@@ -8,7 +8,8 @@ serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
 plane, at 4 bits (built from a table) and at 1 — then the table vector
 index, then its three training steps (the Titanic MLP, read from a table,
 ResNet-50 and BERT-base MLM, each on a fixed batch and fed from a table),
-then the table → train-step loader on a 20M-row table beside a stock
+Switch-Base-8 (BERT-base with 8 experts) and every sharded train step
+under one NCCL rank, then the table → train-step loader on a 20M-row table beside a stock
 DataLoader and its device replay cache, and fails if any phase fails.
 Each phase prints one JSON line with its own timing:
 
@@ -138,6 +139,21 @@ Each phase prints one JSON line with its own timing:
              (6,144 seeded documents × 128, ``hash_bucket_num=4``, LSF, a 5 %
              upsert wave) with the example's masking on the host; the
              numbers of 9b with sequences/s and tokens/s.
+10c. moe_bert_base — Switch-Base-8 (Fedus et al. 2021: BERT-base's widths,
+             8 experts, top-1, capacity factor 1.25, aux 0.01):
+             ``BertConfig(n_experts=8)`` on bert_base's step and batch; card =
+             CPU at float32 (gradients too) and bf16 (``moe_bert_base_hold``
+             line), the loss falls, step ms, ``mfu`` (each token through one
+             expert, plus the router), peak GB, each expert's load and the
+             share of tokens dropped past capacity, per layer.
+10d. parallel — one NCCL process group of world size 1 (a ``file://`` store)
+             and ``make_mesh()`` over it: at BERT-base widths (float32, 32 ×
+             128) the plan step with ring and with Ulysses attention, the
+             pipeline step (4 microbatches) and the MoE plan step, and the
+             ResNet-50 plan step (float32, 16 × 224²), each first loss within
+             1e-4 of the plain single-device step's on the same weights and
+             batch; ``cross_chip_topk`` = the host's stable merge.  The code
+             path on the card, not its scaling: one card.
 11. loader — ``bench.py``'s headline train leg on the card: its 20,000,000-row
              table (``id``, ``f0..f15`` float32, ``label``; 500k-row chunks
              from seed 0, ``hash_bucket_num=8``, LSF, one 5 % upsert wave
@@ -252,6 +268,10 @@ HOLD_BATCH = 2  # card = CPU at full width on 2 examples
 HOLD_RTOL, HOLD_GRAD_ATOL, HOLD_BF16_LOSS = 1e-4, 1e-3, 2e-2
 HOLD_F32_SPREAD = 2.0  # ResNet-50's float32 gradients: the card within 2x the CPU's own error
 PROFILE_TOP = 8
+# Switch-Base-8 (Fedus et al. 2021: T5-Base widths, 8 experts) and
+# the parallel layer on one card (NCCL world size 1)
+MOE_EXPERTS = 8
+PAR_BATCH, PAR_MICRO, PAR_RESNET_BATCH = 32, 4, 16
 # the loader phase: bench.py's table (bench.py:82-93, 174-242) and train leg
 # (bench.py:374-423), its DataLoader comparator (bench.py:343-361, 557-);
 # the storage core and the loader are host code: no hand kernel on the path
@@ -2001,6 +2021,190 @@ def phase_bert_base(torch, M, C, kind: str) -> dict:
     return rec
 
 
+def moe_flops(cfg, tokens: int, seq: int) -> float:
+    """``bert_flops`` with each token counted once through one expert (its
+    FFN's 2 · h · f a layer, as the dense FFN's) plus the router's h · E."""
+    return bert_flops(cfg, tokens, seq) + tokens * 6.0 * cfg.layers * cfg.hidden * cfg.n_experts
+
+
+def moe_routing(torch, MB, model, ids, mask) -> dict:
+    """One no-grad forward with ``models.bert.moe_ffn`` wrapped: each layer's
+    tokens per expert (its argmax of the float32 router, as the layer
+    computes it) and the share dropped past capacity (first come keeps C)."""
+    from lakesoul_tpu_torch.parallel.moe import moe_capacity
+
+    cfg, orig, loads = model.cfg, MB.moe_ffn, []
+
+    def spy(x, gate_w, *args, **kw):
+        counts = torch.bincount(torch.softmax(x.float() @ gate_w.float(), -1).argmax(-1),
+                                minlength=cfg.n_experts)
+        loads.append(counts)
+        return orig(x, gate_w, *args, **kw)
+
+    MB.moe_ffn = spy
+    try:
+        with torch.no_grad():
+            MB.bert_forward(model, ids, mask)
+    finally:
+        MB.moe_ffn = orig
+    n = ids.numel()
+    cap = moe_capacity(n, cfg.n_experts, cfg.capacity_factor)
+    dropped = [float((c - c.clamp(max=cap)).sum()) / n for c in loads]
+    return {"capacity": cap, "tokens": n, "dropped_share_by_layer": dropped,
+            "dropped_share": float(np.mean(dropped)),
+            "expert_load_by_layer": [(c.float() / n).tolist() for c in loads]}
+
+
+def phase_moe_bert_base(torch, M, C, kind: str) -> dict:
+    """Switch-Base-8 (Fedus et al. 2021): BERT-base's widths (T5-Base's)
+    with every FFN a top-1 MoE of 8 experts, capacity factor 1.25, aux
+    weight 0.01 — ``BertConfig(n_experts=8)`` — through
+    ``make_bert_train_state`` (AdamW 1e-4) and ``make_bert_train_step`` on
+    ``bert_base``'s fixed 256 × 128 batch; card = CPU first (leaves:
+    tok_emb, layer 0's router and first expert weights, the last layer's
+    second, mlm_bias), then what ``bert_base`` reports, with ``mfu`` from
+    ``moe_flops``, and the routing: each expert's load and the share of
+    tokens dropped past capacity, per layer."""
+    import lakesoul_tpu_torch.models.bert as MB
+
+    cfg = M.BertConfig(n_experts=MOE_EXPERTS)
+    model, opt = M.make_bert_train_state(cfg, seed=SEED, device=DEVICE)
+    hid, hlab, hmask = bert_batch(torch, torch.Generator().manual_seed(SEED + 1), HOLD_BATCH,
+                                  cfg.vocab_size, "cpu")
+
+    def run(m, dev):
+        logits, aux = M.bert_forward(m, hid.to(dev), hmask.to(dev), with_aux=True)
+        return M.masked_nll(logits, hlab.to(dev)) + m.cfg.moe_aux_weight * aux, logits
+
+    last = len(model.layers) - 1
+    hold = hold_card_to_cpu(
+        torch, M, C, model, lambda: M.Bert(model.cfg, device="cpu"), run,
+        ("tok_emb", "layers.0.moe.gate_w", "layers.0.moe.w1", f"layers.{last}.moe.w2",
+         "mlm_bias"))
+    emit("moe_bert_base_hold", **hold)
+    require(all(hold["ok"].values()), f"MoE BERT-base on the card != on the CPU: {hold['ok']}")
+
+    ids, labels, mask = bert_batch(torch, torch.Generator().manual_seed(SEED), BERT_BATCH,
+                                   cfg.vocab_size, DEVICE)
+    routing = moe_routing(torch, MB, model, ids, mask)
+    step = M.make_bert_train_step(model, opt, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    run_rec = train_steps(torch, step, (ids, labels, mask))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile(torch, lambda: step(ids, labels, mask))
+    tokens = BERT_BATCH * BERT_SEQ
+    flops = moe_flops(cfg, tokens, BERT_SEQ)
+    sec = run_rec["step_ms"] / 1e3
+    rec = {"config": "Switch-Base-8 (BERT-base widths, 8 experts, top-1, capacity 1.25, "
+                     "aux 0.01; Fedus et al. 2021)", "device_kind": kind,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "dtype": cfg.dtype,
+           "optimizer": "adamw 1e-4, weight decay 1e-4", "warmup_steps": WARMUP_STEPS,
+           "timed_steps": TIMED_STEPS, **run_rec, "sequences_per_s": BERT_BATCH / sec,
+           "tokens_per_s": tokens / sec, "peak_gb": peak, "model_flop_per_step": flops,
+           "flops_counted": "6 x (attention projections + one expert's FFN + the router) x "
+                            "tokens + attention QK/PV + the tied head, padded positions too",
+           "mfu": flops / sec / PEAK_BF16_FLOP_S, "mfu_peak_flop_s": PEAK_BF16_FLOP_S,
+           "routing": routing, "profile": {**prof, "top": prof["top"][:PROFILE_TOP]},
+           "held": hold["held"],
+           "reduced": "Switch-Base-8 puts an MoE layer in every other block; the "
+                      "reference's design (and the port) in every block"}
+    emit("moe_bert_base", **rec)
+    return rec
+
+
+def phase_parallel(torch, M, C, kind: str) -> dict:
+    """The parallel layer on the card: one NCCL process group of world size
+    1 (a ``file://`` store in a temporary directory), ``make_mesh()`` over it,
+    and each plan step beside the plain single-device step on the same
+    weights (``Bert(cfg, seed=SEED)``) and batch: BERT-base widths at
+    float32 (TF32 off) on PAR_BATCH × 128 with ``sequence_parallel="ring"``
+    and ``"ulysses"``, the pipeline step (``n_micro=4``), the MoE plan step
+    (8 experts), and the ResNet-50 plan step on PAR_RESNET_BATCH × 224²
+    (the batch norm's group path); each first loss must equal the plain
+    step's within HOLD_RTOL.  Then ``cross_chip_topk`` on the card = the
+    host's stable merge.  This shows the code path runs on the card (every
+    gradient sum goes through NCCL), not that it scales: one card."""
+    import torch.distributed as dist
+
+    from lakesoul_tpu_torch.annplane.collective import cross_chip_topk
+    from lakesoul_tpu_torch.parallel import make_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    rec, ok = {"device_kind": kind, "world_size": 1, "backend": "nccl",
+               "dtype": "float32", "batch": PAR_BATCH, "seq": BERT_SEQ,
+               "note": "world size 1: the code path on the card, not its scaling"}, {}
+    try:
+        plan = make_mesh()
+        rec["mesh"] = {a: getattr(plan, a) for a in plan.axis_names}
+        ids, labels, mask = bert_batch(torch, torch.Generator().manual_seed(SEED + 2), PAR_BATCH,
+                                       M.BertConfig().vocab_size, DEVICE)
+
+        def two_losses(step, *batch):
+            t = time.perf_counter()
+            losses = [float(step(*batch)) for _ in range(2)]
+            return {"losses": losses, "s": time.perf_counter() - t}
+
+        def compare(name, plain, planned):
+            err = abs(planned["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+            rec[name] = {"plain": plain, "plan": planned, "first_loss_rel_err": err}
+            ok[name] = bool(np.isfinite(planned["losses"]).all()) and err <= HOLD_RTOL
+
+        for n_experts in (0, MOE_EXPERTS):
+            cfg = M.BertConfig(dtype="float32", n_experts=n_experts)
+            model, opt = M.make_bert_train_state(cfg, seed=SEED, device=DEVICE)
+            plain = two_losses(M.make_bert_train_step(model, opt, device=DEVICE),
+                               ids, labels, mask)
+            del model, opt
+            modes = ("ring", "ulysses") if not n_experts else ("ring",)
+            for mode in modes:
+                model, opt = M.make_bert_train_state(cfg, plan=plan, seed=SEED)
+                step = M.make_bert_train_step(model, opt, plan=plan, sequence_parallel=mode)
+                compare(f"bert_{mode}" if not n_experts else "moe_bert",
+                        plain, two_losses(step, ids, labels, mask))
+                del model, opt, step
+            if not n_experts:
+                model, opt = M.make_bert_pipeline_train_state(cfg, plan, seed=SEED)
+                step = M.make_bert_pipeline_train_step(model, opt, plan, n_micro=PAR_MICRO)
+                compare("bert_pipeline", plain, two_losses(step, ids, labels, mask))
+                del model, opt, step
+            torch.cuda.empty_cache()
+
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        images = torch.randn(PAR_RESNET_BATCH, RESNET_IMG, RESNET_IMG, 3, device=DEVICE,
+                             generator=g)
+        classes = torch.randint(0, RESNET_CLASSES, (PAR_RESNET_BATCH,), device=DEVICE,
+                                generator=g)
+        rcfg = M.ResNetConfig(dtype="float32")
+        steps = {}
+        for name, kw in (("plain", {"device": DEVICE}), ("plan", {"plan": plan})):
+            model = M.ResNet(rcfg, seed=SEED, device=DEVICE)
+            steps[name] = two_losses(M.make_resnet_train_step(
+                model, M.sgd(model.parameters(), RESNET_LR), **kw), images, classes)
+            del model
+        compare("resnet50", steps["plain"], steps["plan"])
+        rec["resnet50"]["batch"] = PAR_RESNET_BATCH
+
+        gt = torch.Generator(device=DEVICE).manual_seed(SEED)
+        d = (torch.randint(0, 16, (64,), device=DEVICE, generator=gt) / 16).float()
+        rows = torch.randint(0, 1 << 20, (64,), device=DEVICE, generator=gt, dtype=torch.int32)
+        md, mr, msrc = cross_chip_topk(d, rows, k=10, group=plan.group("dp"))
+        order = np.argsort(d.cpu().numpy(), kind="stable")[:10]
+        ok["cross_chip_topk"] = bool(
+            np.array_equal(md.cpu().numpy(), d.cpu().numpy()[order])
+            and np.array_equal(mr.cpu().numpy(), rows.cpu().numpy()[order])
+            and (msrc.cpu().numpy() == 0).all())
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    rec["ok"] = ok
+    emit("parallel", **rec)
+    require(all(ok.values()), f"a plan step's loss != the plain step's: {ok}")
+    return rec
+
+
 def resnet_table_transform(b: dict) -> dict:
     """``examples/resnet_from_table.py``'s transform, split at the copy to
     the card: here the uint8 pixels become an NHWC view and the labels
@@ -2927,6 +3131,11 @@ def main(argv: list) -> int:
     bb = phase_bert_base(torch, M, C, kind)
     torch.cuda.empty_cache()
     phase_bert_base_table(torch, M, L, kind, bb)
+    torch.cuda.empty_cache()
+    # 10c-10d. Switch-Base-8, and every plan step under NCCL on one card
+    phase_moe_bert_base(torch, M, C, kind)
+    torch.cuda.empty_cache()
+    phase_parallel(torch, M, C, kind)
     torch.cuda.empty_cache()
 
     # 11. the table -> train-step loader and its replay cache (host code and

@@ -18,7 +18,18 @@ The reference's numerics, kept where torch's defaults differ:
 
 The reference stacks its layers on a leading axis for one ``lax.scan``;
 here they are ``layers.{i}`` modules (``models/convert.py`` moves between
-the two).  Mixture-of-experts FFNs (``n_experts > 0``) are not ported yet.
+the two).  ``n_experts > 0`` swaps every FFN for a top-1 Switch MoE layer
+(``layers.{i}.moe``, ``parallel/moe.py``) whose load-balancing term joins
+the loss at ``moe_aux_weight``.
+
+Sharded (``plan=`` a ``parallel.mesh.MeshPlan``), a model holds this rank's
+slice of every parameter (``param_sharding_rules``, ``models/convert.py``
+``shard_params``) and its batch shard ``[B / dp, T / sp]``: q/k/v and w1
+are split by columns over tp and wo and w2 by rows (Megatron: the layer's
+input enters the tp region through ``copy_to``, the row-parallel product
+leaves it through ``reduce_from``, and ``b2`` is added once, after the
+sum); positions are this rank's sequence block of ``pos_emb``; MoE
+experts are split over ep.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from lakesoul_tpu_torch.device import resolve_device
-from lakesoul_tpu_torch.errors import ConfigError
+from lakesoul_tpu_torch.parallel.collectives import copy_to, reduce_from
+from lakesoul_tpu_torch.parallel.mesh import DATA_AXES
+from lakesoul_tpu_torch.parallel.moe import init_moe_ffn_params, moe_ffn, moe_param_rules
 
 LN_EPS = 1e-6
 MASK_FILL = -1e30
@@ -47,7 +60,8 @@ class BertConfig:
     ff: int = 3072
     max_len: int = 512
     dtype: str = "bfloat16"
-    # the reference's MoE fields: any n_experts > 0 raises here (not ported yet)
+    # MoE: n_experts > 0 swaps every FFN for a top-1 Switch MoE layer
+    # (parallel/moe.py) with experts sharded over the 'ep' mesh axis
     n_experts: int = 0
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -74,11 +88,21 @@ class _LN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(h))
 
 
+class _Moe(nn.Module):
+    def __init__(self, params: dict):
+        super().__init__()
+        for k, v in params.items():
+            setattr(self, k, nn.Parameter(v))
+
+
 class _Layer(nn.Module):
-    def __init__(self, norm, h: int, f: int):
+    def __init__(self, norm, h: int, f: int, moe: dict | None = None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = (norm(h, h) for _ in range(4))
         self.ln1, self.ln2 = _LN(h), _LN(h)
+        if moe is not None:
+            self.moe = _Moe(moe)
+            return
         self.w1, self.w2 = norm(h, f), norm(f, h)
         self.b1 = nn.Parameter(torch.zeros(f))
         self.b2 = nn.Parameter(torch.zeros(h))
@@ -91,8 +115,6 @@ class Bert(nn.Module):
 
     def __init__(self, cfg: BertConfig = BertConfig(), *, seed: int = 0, device=None):
         super().__init__()
-        if cfg.n_experts:
-            raise ConfigError("MoE is not ported yet")
         self.cfg = cfg
         g = torch.Generator().manual_seed(seed)
 
@@ -103,13 +125,47 @@ class Bert(nn.Module):
         self.tok_emb = norm(cfg.vocab_size, h)
         self.pos_emb = norm(cfg.max_len, h)
         self.emb_ln = _LN(h)
-        self.layers = nn.ModuleList(_Layer(norm, h, cfg.ff) for _ in range(cfg.layers))
+
+        def moe():
+            return init_moe_ffn_params(g, h, cfg.ff, cfg.n_experts, INIT_STD)
+
+        self.layers = nn.ModuleList(_Layer(norm, h, cfg.ff, moe() if cfg.n_experts else None)
+                                    for _ in range(cfg.layers))
         self.mlm_ln = _LN(h)
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
         self.to(resolve_device(device))
 
     def forward(self, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None):
         return bert_forward(self, input_ids, attn_mask)
+
+
+def param_sharding_rules(plan=None, *, n_experts: int = 0) -> dict:
+    """Which dim of each parameter splits over which mesh axis, as the
+    reference's PartitionSpecs (``bert.py:96-127``) over its param tree:
+    ``layers`` leaves carry the leading layer axis.  FFN and QKV/out
+    projections are tensor-sharded over 'tp' (Megatron column/row split),
+    embeddings replicated; with MoE, expert weights over 'ep'."""
+    layers = {
+        "wq": (None, None, "tp"),
+        "wk": (None, None, "tp"),
+        "wv": (None, None, "tp"),
+        "wo": (None, "tp", None),
+        "ln1": {"scale": (), "bias": ()},
+        "ln2": {"scale": (), "bias": ()},
+    }
+    if n_experts:
+        layers["moe"] = moe_param_rules()
+    else:
+        layers.update(w1=(None, None, "tp"), w2=(None, "tp", None), b1=(None, "tp"),
+                      b2=(None, None))
+    return {
+        "tok_emb": (),
+        "pos_emb": (),
+        "emb_ln": {"scale": (), "bias": ()},
+        "layers": layers,
+        "mlm_ln": {"scale": (), "bias": ()},
+        "mlm_bias": (),
+    }
 
 
 def layer_norm(x: torch.Tensor, p: _LN, eps: float = LN_EPS) -> torch.Tensor:
@@ -125,27 +181,46 @@ def default_attention(q, k, v, mask):
     return p @ v
 
 
-def bert_layer(x: torch.Tensor, lp: _Layer, attn_mask: torch.Tensor, *,
-               cfg: BertConfig) -> torch.Tensor:
-    """One pre-LN transformer block: x [B, T, h] → x.  (The reference also
-    returns its MoE auxiliary loss, 0 for a dense FFN.)"""
+def bert_layer(x: torch.Tensor, lp: _Layer, attn_mask: torch.Tensor, *, cfg: BertConfig,
+               attention_fn=None, plan=None, token_index=None):
+    """One pre-LN transformer block: x [B, T, h] → (x, aux), aux the MoE
+    load-balancing term (0 for a dense FFN).  With ``plan``, x is this
+    rank's [B/dp, T/sp, h] and ``lp`` its slice; ``token_index`` gives the
+    MoE each local token's index in the global row-major order."""
     dtype = getattr(torch, cfg.dtype)
     B, T = x.shape[0], x.shape[1]
-    y = layer_norm(x, lp.ln1)
+    tp = plan.group("tp") if plan is not None else None
+    heads = lp.wq.shape[1] // cfg.head_dim  # this rank's heads
+    if attention_fn is None:
+        attention_fn = default_attention
+    y = copy_to(layer_norm(x, lp.ln1), tp)
 
-    def heads(w):
-        return (y @ w.to(dtype)).view(B, T, cfg.heads, cfg.head_dim).transpose(1, 2)
+    def split(w):
+        return (y @ w.to(dtype)).view(B, T, heads, cfg.head_dim).transpose(1, 2)
 
-    a = default_attention(heads(lp.wq), heads(lp.wk), heads(lp.wv), attn_mask)
-    x = x + a.transpose(1, 2).reshape(B, T, cfg.hidden) @ lp.wo.to(dtype)
+    a = attention_fn(split(lp.wq), split(lp.wk), split(lp.wv), attn_mask)
+    a = a.transpose(1, 2).reshape(B, T, heads * cfg.head_dim)
+    x = x + reduce_from(a @ lp.wo.to(dtype), tp)
     y = layer_norm(x, lp.ln2)
+    if cfg.n_experts:
+        m = lp.moe
+        out, aux = moe_ffn(
+            y.reshape(B * T, cfg.hidden), m.gate_w, m.w1, m.b1, m.w2, m.b2,
+            capacity_factor=cfg.capacity_factor,
+            token_group=plan.group(*DATA_AXES) if plan is not None else None,
+            token_index=token_index, ep_group=plan.group("ep") if plan is not None else None)
+        return x + out.reshape(B, T, cfg.hidden), aux
+    y = copy_to(y, tp)
     hdn = F.gelu(y @ lp.w1.to(dtype) + lp.b1.to(dtype), approximate="tanh")
-    return x + (hdn @ lp.w2.to(dtype) + lp.b2.to(dtype))
+    x = x + (reduce_from(hdn @ lp.w2.to(dtype), tp) + lp.b2.to(dtype))
+    return x, x.new_zeros((), dtype=torch.float32)
 
 
-def bert_embed(model: Bert, input_ids: torch.Tensor) -> torch.Tensor:
+def bert_embed(model: Bert, input_ids: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    """Token + position embeddings (positions ``pos_offset`` on: a sequence
+    block's), layer norm, in the compute dtype."""
     T = input_ids.shape[1]
-    x = F.embedding(input_ids, model.tok_emb) + model.pos_emb[:T][None]
+    x = F.embedding(input_ids, model.tok_emb) + model.pos_emb[pos_offset:pos_offset + T][None]
     return layer_norm(x, model.emb_ln).to(getattr(torch, model.cfg.dtype))
 
 
@@ -155,28 +230,52 @@ def bert_head(model: Bert, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ model.tok_emb.T + model.mlm_bias
 
 
-def bert_forward(model: Bert, input_ids: torch.Tensor,
-                 attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Encoder forward → MLM logits [B, T, vocab]."""
+def bert_forward(model: Bert, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
+                 *, attention_fn=None, with_aux: bool = False, plan=None):
+    """Encoder forward → MLM logits [B, T, vocab] (or (logits, aux) with
+    ``with_aux``: aux is the summed MoE load-balancing loss).
+
+    ``attention_fn(q, k, v, mask)`` defaults to plain full attention; pass
+    ``parallel.make_ring_attention(plan)`` for sequence parallelism.  With
+    ``plan``, ``input_ids`` is this rank's [B/dp, T/sp] block."""
     if attn_mask is None:
         attn_mask = torch.ones(input_ids.shape, dtype=torch.bool, device=input_ids.device)
     attn_mask = attn_mask.bool()
-    x = bert_embed(model, input_ids)
+    B, T = input_ids.shape
+    offset, token_index = 0, None
+    if plan is not None:
+        offset = plan.coord("sp") * T
+        rows = plan.coord("dp") * B + torch.arange(B, device=input_ids.device)
+        cols = offset + torch.arange(T, device=input_ids.device)
+        token_index = (rows[:, None] * (T * plan.sp) + cols[None, :]).reshape(-1)
+    x = bert_embed(model, input_ids, offset)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x = bert_layer(x, lp, attn_mask, cfg=model.cfg)
-    return bert_head(model, x)
+        x, a = bert_layer(x, lp, attn_mask, cfg=model.cfg, attention_fn=attention_fn, plan=plan,
+                          token_index=token_index)
+        aux = aux + a
+    logits = bert_head(model, x)
+    return (logits, aux) if with_aux else logits
 
 
-def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean NLL over positions with labels >= 0 (-100 = ignore); 0 when none is."""
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor, count=None) -> torch.Tensor:
+    """Mean NLL over positions with labels >= 0 (-100 = ignore); 0 when none
+    is.  ``count``: the divisor's label count when it is not this batch's
+    (a rank's share of a batch split over ranks: its sum over the global
+    count)."""
     valid = labels >= 0
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           torch.where(valid, labels, -100).reshape(-1).long(),
                           ignore_index=-100, reduction="sum")
-    return nll / valid.sum().clamp(min=1)
+    return nll / (valid.sum() if count is None else count).clamp(min=1)
 
 
 def bert_mlm_loss(model: Bert, input_ids: torch.Tensor, labels: torch.Tensor,
                   attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked-LM loss: labels < 0 are ignored."""
-    return masked_nll(bert_forward(model, input_ids, attn_mask), labels)
+    """Masked-LM loss: labels < 0 are ignored.  With MoE configs the Switch
+    load-balancing auxiliary joins at ``cfg.moe_aux_weight``."""
+    logits, aux = bert_forward(model, input_ids, attn_mask, with_aux=True)
+    loss = masked_nll(logits, labels)
+    if model.cfg.n_experts:
+        loss = loss + model.cfg.moe_aux_weight * aux
+    return loss

@@ -17,6 +17,14 @@ It keeps the reference's layouts at its edges and its numerics inside:
 - params are float32 masters; each conv casts its weight to the compute
   dtype and accumulates in float32 (cuDNN and oneDNN both do), the global
   mean and the head run in float32.  Casts are explicit, never autocast.
+
+Data parallel (``resnet_forward(..., group=)``, the dp group): the batch
+norm is the global batch's, as in the reference's GSPMD step, whose
+``jnp.mean`` / ``jnp.var`` run over the whole batch: the mean, then the
+mean of the centred squares, each a sum over the group
+(``all_reduce_sum``, so the backward reaches every rank's share).  Local
+statistics would give another model; ``nn.SyncBatchNorm`` would also keep
+running buffers the reference does not have.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lakesoul_tpu_torch.device import resolve_device
+from lakesoul_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 BLOCKS = {  # ResNet-50 stage configuration
     50: (3, 4, 6, 3),
@@ -134,25 +143,40 @@ def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
     return F.max_pool2d(x, k, stride, padding=pad)  # its own padding is −inf too
 
 
-def bn(x: torch.Tensor, p: _BN) -> torch.Tensor:
-    """Batch statistics over N, H, W in float32, out in ``x``'s dtype."""
-    return F.batch_norm(x, None, None, p.scale, p.bias, training=True, momentum=0.0, eps=BN_EPS)
+def bn(x: torch.Tensor, p: _BN, group=None) -> torch.Tensor:
+    """Batch statistics over N, H, W in float32 (float64 for float64 input),
+    out in ``x``'s dtype; over the batch of every rank of ``group`` when one
+    is given."""
+    if group is None:
+        return F.batch_norm(x, None, None, p.scale, p.bias, training=True, momentum=0.0,
+                            eps=BN_EPS)
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # as F.batch_norm takes it
+    n = x.shape[0] * x.shape[2] * x.shape[3] * group_size(group)
+    mu = all_reduce_sum(x32.sum((0, 2, 3)), group) / n
+    d = x32 - mu[None, :, None, None]
+    var = all_reduce_sum((d * d).sum((0, 2, 3)), group) / n
+    y = d * torch.rsqrt(var + BN_EPS)[None, :, None, None]
+    return (y * p.scale[None, :, None, None] + p.bias[None, :, None, None]).to(x.dtype)
 
 
-def resnet_forward(model: ResNet, images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] → logits [B, num_classes] float32."""
+def resnet_forward(model: ResNet, images: torch.Tensor, group=None) -> torch.Tensor:
+    """images [B, H, W, 3] → logits [B, num_classes] float32; ``group``:
+    the ranks whose batches the batch norm spans."""
+    def norm(y, p):
+        return bn(y, p, group)
+
     x = images.permute(0, 3, 1, 2).to(getattr(torch, model.cfg.dtype))
-    x = torch.relu(bn(conv(x, model.stem.conv, stride=2), model.stem.bn))
+    x = torch.relu(norm(conv(x, model.stem.conv, stride=2), model.stem.bn))
     x = max_pool(x)
     for stage, blocks in enumerate(model.stages):
         for b, blk in enumerate(blocks):
             stride = 2 if (stage > 0 and b == 0) else 1
             resid = x
-            y = torch.relu(bn(conv(x, blk.conv1), blk.bn1))
-            y = torch.relu(bn(conv(y, blk.conv2, stride=stride), blk.bn2))
-            y = bn(conv(y, blk.conv3), blk.bn3)
+            y = torch.relu(norm(conv(x, blk.conv1), blk.bn1))
+            y = torch.relu(norm(conv(y, blk.conv2, stride=stride), blk.bn2))
+            y = norm(conv(y, blk.conv3), blk.bn3)
             if hasattr(blk, "proj"):
-                resid = bn(conv(x, blk.proj, stride=stride), blk.proj_bn)
+                resid = norm(conv(x, blk.proj, stride=stride), blk.proj_bn)
             x = torch.relu(y + resid)
     x = x.to(model.head.w.dtype).mean((2, 3))  # float32, the params' dtype
     return x @ model.head.w + model.head.b

@@ -7,9 +7,12 @@ unimportable while every port module is imported, a tiny index is built
 and searched on the CPU, and so is a tiny two-shard ANN plane, the MLP,
 ResNet and BERT each take one tiny train step, a tiny primary-key table is
 created, written, upserted and read through ``to_torch_iter`` (a streamed
-epoch, then a replayed one with ``cache="device"``), and a tiny vector
+epoch, then a replayed one with ``cache="device"``), a tiny vector
 table is indexed (``build_vector_index``) and searched (``vector_search``,
-``scan().vector_search``).  It has to be a subprocess: ``tests/conftest.py``
+``scan().vector_search``), and a gloo process group of one rank takes a
+tiny BERT plan step (``parallel/``, ``make_mesh``) and a
+``cross_chip_topk``; every ``parallel`` module, ``annplane/collective``
+and ``entry`` are among the modules imported.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -139,8 +142,26 @@ _CHILD = textwrap.dedent(
     assert int(vids[0]) == 7, vids
     rows = vt.scan().vector_search("emb", x[7], top_k=3, nprobe=4, device="cpu").to_arrow()
     assert 7 in rows.column("id").to_pylist()
+    import datetime
+    import torch.distributed as dist
+    from lakesoul_tpu_torch.annplane.collective import cross_chip_topk
+    from lakesoul_tpu_torch.parallel import make_mesh
+    for name in ("collectives", "launch", "mesh", "moe", "pipeline", "ring_attention", "ulysses"):
+        assert f"lakesoul_tpu_torch.parallel.{name}" in mods, name
+    assert "lakesoul_tpu_torch.annplane.collective" in mods and "lakesoul_tpu_torch.entry" in mods
+    dist.init_process_group("gloo", store=dist.FileStore(tempfile.mkdtemp() + "/store", 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    plan = make_mesh(device_type="cpu")
+    bert, opt = make_bert_train_state(BertConfig.tiny(), plan=plan)
+    loss = make_bert_train_step(bert, opt, plan=plan, sequence_parallel="ulysses")(
+        ids, np.where(rng.random((2, 16)) < 0.3, ids, -100), np.ones((2, 16), bool))
+    assert bool(torch.isfinite(loss)), loss
+    d, r, src = cross_chip_topk(np.array([0.5, 0.1], np.float32), np.array([7, 9], np.int32),
+                                k=1, group=dist.group.WORLD)
+    assert (float(d[0]), int(r[0]), int(src[0])) == (np.float32(0.1), 9, 0)
+    dist.destroy_process_group()
     if not torch.cuda.is_available():
-        for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root),
+        for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),
                      lambda: tbl.scan().to_torch_iter()):
             try:

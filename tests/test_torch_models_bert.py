@@ -22,10 +22,13 @@ import pytest
 import torch
 
 from lakesoul_tpu.models import bert as JB
-from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.models import bert as TB
 from lakesoul_tpu_torch.models import convert
-from lakesoul_tpu_torch.models.train import make_bert_train_state, make_bert_train_step
+from lakesoul_tpu_torch.models.train import (
+    make_bert_pipeline_train_state,
+    make_bert_train_state,
+    make_bert_train_step,
+)
 
 B, T = 3, 32
 LENGTHS = (32, 20, 0)
@@ -122,9 +125,73 @@ def test_masked_nll_of_an_all_ignored_batch_is_zero():
 
 
 def test_moe_configs_raise():
-    with pytest.raises(ConfigError, match="MoE is not ported yet"):
-        TB.Bert(TB.BertConfig(**{**TB.BertConfig.tiny().__dict__, "n_experts": 4}),
-                device="cpu")
+    """MoE configs build now (below); the layout the reference rejects for
+    them, the pipeline's (``train.py:148-152``), raises here too."""
+    with pytest.raises(ValueError, match="pipeline layout does not support MoE configs"):
+        make_bert_pipeline_train_state(_moe_cfg(), None)
+
+
+def _moe_cfg(dtype="float32"):
+    # 96 tokens over 4 experts at capacity factor 1.0: C = 24, so it binds
+    return TB.BertConfig(**{**_cfg(dtype).__dict__, "n_experts": 4, "capacity_factor": 1.0})
+
+
+@pytest.fixture(scope="module")
+def moe_reference():
+    """The reference's MoE BERT (``bert.py:163-175, 262-264``) on the port's
+    init carried across: logits, aux and loss at float32 and bf16, and the
+    float32 gradients."""
+    params = convert.to_reference_params(TB.Bert(_moe_cfg(), device="cpu"))
+    ids, labels, mask = _batch()
+    out = {"params": params}
+    for dtype in ("float32", "bfloat16"):
+        jcfg = JB.BertConfig(**{**_jcfg(dtype).__dict__, "n_experts": 4, "capacity_factor": 1.0})
+
+        def loss(p, jcfg=jcfg):
+            logits, aux = JB.bert_forward(p, ids, mask, cfg=jcfg, with_aux=True)
+            return JB.bert_mlm_loss(p, ids, labels, mask, cfg=jcfg), (logits, aux)
+
+        (l, (logits, aux)), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+        out[dtype] = dict(loss=float(l), logits=np.asarray(logits), aux=float(aux),
+                          grads=convert._flatten(jax.tree.map(np.asarray, g)))
+    return out
+
+
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_moe_bert_forward_and_loss(dtype, rel, moe_reference):
+    m = _port(moe_reference["params"], dtype, _moe_cfg(dtype))
+    ids, labels, mask = _batch()
+    logits, aux = TB.bert_forward(m, _t(ids), _t(mask), with_aux=True)
+    want = moe_reference[dtype]
+    _close(logits.detach().numpy(), want["logits"], rel)
+    np.testing.assert_allclose(float(aux.detach()), want["aux"],
+                               rtol=1e-5 if dtype == "float32" else rel)
+    loss = TB.bert_mlm_loss(m, _t(ids), _t(labels), _t(mask))
+    np.testing.assert_allclose(float(loss.detach()), want["loss"], rtol=rel)
+
+
+def _moe_leaves():
+    return sorted(convert._flatten(convert.to_reference_params(TB.Bert(_moe_cfg(), device="cpu"))))
+
+
+@pytest.mark.parametrize("leaf", _moe_leaves())
+def test_moe_bert_f32_gradient(leaf, moe_reference):
+    m = _port(moe_reference["params"], "float32", _moe_cfg())
+    ids, labels, mask = _batch()
+    TB.bert_mlm_loss(m, _t(ids), _t(labels), _t(mask)).backward()
+    view = TB.Bert(m.cfg, device="cpu")
+    view.load_state_dict({n: p.grad for n, p in m.named_parameters()})
+    got = convert._flatten(convert.to_reference_params(view))[leaf]
+    want = moe_reference["float32"]["grads"][leaf]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_moe_weights_cross_bit_for_bit(moe_reference):
+    params = moe_reference["params"]
+    assert params["layers"]["moe"]["w1"].shape == (2, 4, 128, 256)
+    back = convert.to_reference_params(_port(params, "float32", _moe_cfg()))
+    for k, v in convert._flatten(params).items():
+        np.testing.assert_array_equal(convert._flatten(back)[k], v, err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -146,8 +213,8 @@ def reference():
                 logits16=np.asarray(logits16))
 
 
-def _port(params, dtype="float32") -> TB.Bert:
-    m = TB.Bert(_cfg(dtype), device="cpu")
+def _port(params, dtype="float32", cfg=None) -> TB.Bert:
+    m = TB.Bert(cfg or _cfg(dtype), device="cpu")
     m.load_state_dict(convert.from_reference_params(params))
     return m
 
@@ -204,7 +271,7 @@ def test_tied_tok_emb_gradient_sums_the_gather_and_the_head(reference, port_f32)
     x = torch.nn.functional.embedding(_t(ids).long(), m.tok_emb.detach()) + m.pos_emb[:T][None]
     x = TB.layer_norm(x, m.emb_ln)
     for lp in m.layers:
-        x = TB.bert_layer(x, lp, _t(mask), cfg=m.cfg)
+        x, _ = TB.bert_layer(x, lp, _t(mask), cfg=m.cfg)
     TB.masked_nll(TB.bert_head(m, x), _t(labels)).backward()
     head = m.tok_emb.grad.numpy()
     full = port_f32["grads"]["tok_emb"]
