@@ -8,9 +8,11 @@ serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
 plane, at 4 bits (built from a table) and at 1 — then the table vector
 index, then its three training steps (the Titanic MLP, read from a table,
 ResNet-50 and BERT-base MLM, each on a fixed batch and fed from a table),
-Switch-Base-8 (BERT-base with 8 experts) and every sharded train step
-under one NCCL rank, then the table → train-step loader on a 20M-row table beside a stock
-DataLoader and its device replay cache, and fails if any phase fails.
+Switch-Base-8 (BERT-base with 8 experts), its state saved and restored
+sharded, and every sharded train step under one NCCL rank, then the table →
+train-step loader on a 20M-row table beside a stock DataLoader and its device
+replay cache, the fleet train role and the SQL layer on that table, and
+fails if any phase fails.
 Each phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
@@ -38,6 +40,12 @@ Each phase prints one JSON line with its own timing:
              tables, each after its path's timed run; the batch kernel's
              record is its estimate mode, which the path runs, with the
              product-only mode beside it as ``product_*``).
+3b. register — the port's kernel register (``tensorplane/smoke.py``
+             ``run_smoke()``): the reference's five Pallas cases, under their
+             names and on their seeded inputs, each launching the port's
+             kernels (all seven ``extern "C"`` entry points) against their
+             plain versions (rtol = atol = 2e-4, the reference's case
+             tolerance); every case must pass, no reference kernel uncovered.
 4. slice   — builds a 1,000,000 x 512 index (nlist 1024, 1-bit, fht,
              raw vectors kept) from a seeded, L2-normalized mixture of 1024
              gaussians, then batch_search, single search, per-cluster
@@ -146,7 +154,15 @@ Each phase prints one JSON line with its own timing:
              line), the loss falls, step ms, ``mfu`` (each token through one
              expert, plus the router), peak GB, each expert's load and the
              share of tokens dropped past capacity, per layer.
-10d. parallel — one NCCL process group of world size 1 (a ``file://`` store)
+10d. checkpoint — ``moe_bert_base``'s Switch-Base-8 and AdamW after its
+             steps under a world-size-1 NCCL ``plan=`` state, saved by the
+             sharded ``TrainCheckpointer`` (``torch.distributed.checkpoint``)
+             into the git-ignored ``.scratch/`` and restored into a state
+             built from another seed: every parameter and moment bit-equal;
+             one more step from each, losses within the step's own
+             run-to-run difference (two passes at learning rate 0); save s,
+             restore s, GB written, peak device GB and host RSS.
+10e. parallel — one NCCL process group of world size 1 (a ``file://`` store)
              and ``make_mesh()`` over it: at BERT-base widths (float32, 32 ×
              128) the plan step with ring and with Ulysses attention, the
              pipeline step (4 microbatches) and the MoE plan step, and the
@@ -183,12 +199,26 @@ Each phase prints one JSON line with its own timing:
              tail = the stream, counters > 0); permuted replays equal under
              one seed, the stream's rows as a multiset, reordered the next
              epoch.
+11b. fleet_train — on the loader's table, ``python -m
+             lakesoul_tpu_torch.fleet train --device-put`` as two processes
+             on the one card (process index 0/2 and 1/2, batch 524,288),
+             publishing to a fleet spool: each rank's sha256 = the shard
+             oracle in this process (``digest_batch`` over
+             ``scan.shard(rank, 2).to_torch_iter(device="cpu")``), rows
+             summing to ``count_rows()``, a card seen by each, both members
+             read back by ``FleetAggregator``; rows/s per rank.
+11c. sql   — on the loader's table, pandas unimportable:
+             ``scan.filter("f0 > 0.5 AND label = 1")`` through
+             ``to_torch_iter`` into the MLP step, rows = a numpy count of the
+             unfiltered columns; ``SqlSession``'s ``GROUP BY label`` count and
+             ``avg(f0)`` = numpy's (counts exact, means 1e-6 relative); host
+             seconds.
 
 Each ANN path's kernel launch counts are set to 0 just before it is driven and
 read just after; every kernel must have run on its path.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
+The last three lines are the command's seconds (``command``), the kernels'
+JSON record and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
 
@@ -282,6 +312,11 @@ LOADER_TIMED_EPOCHS, LOADER_PROFILE_BATCHES, LOADER_STEP_ITERS = 2, 8, 20
 LOADER_WORKERS = (2, 0)  # the DataLoader comparator's num_workers, best of
 TENSOR_REPLAY_FLOOR = 2.0  # benchmarks/micro.py:1514-1518: replay >= 2x the streamed rows/s
 REPLAY_EPOCHS = 2  # replay epochs timed after the fill epoch, best of
+# slice 5's fleet train role and slice 6's SQL layer on the loader's table
+FLEET_RANKS, FLEET_TIMEOUT_S = 2, 300
+SQL_FILTER = "f0 > 0.5 AND label = 1"
+SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
+                "ORDER BY label")
 # slice 4's table feeds (examples/resnet_from_table.py, bert_mlm_from_table.py)
 # at the models' full widths
 RESNET_TABLE_ROWS, FEED_BUCKETS = 10_240, 4  # 40 batches of 256, ~1.54 GB of pixels
@@ -805,6 +840,25 @@ def phase_kernels(torch, K, R) -> dict:
          timings=rec, batch_tiles=tiles,
          library_calls={k: v[2] for k, v in KERNELS.items()})
     return {"errs": errs, "timings": rec}
+
+
+def phase_register(kind: str) -> dict:
+    """The port's kernel register (``tensorplane/smoke.py``) on the card:
+    each of the reference's five Pallas kernels' cases launches the port's
+    kernels (all seven entry points) on the reference's seeded case inputs
+    and holds them against their plain versions; every case must pass and
+    no reference kernel may be uncovered.  Its launches count on no path:
+    each path sets the counts to 0 before it is driven."""
+    from lakesoul_tpu_torch.tensorplane.smoke import run_smoke
+
+    t0 = time.perf_counter()
+    report = run_smoke()
+    rec = {"device_kind": kind, "seconds": time.perf_counter() - t0, **report}
+    emit("register", **rec)
+    require(report["ok"] and all(c["status"] == "pass" for c in report["cases"])
+            and not report["kernel_enumeration"]["uncovered"],
+            f"the kernel register failed on the card: {report['cases']}")
+    return rec
 
 
 def make_data(torch, dev):
@@ -2110,6 +2164,103 @@ def phase_moe_bert_base(torch, M, C, kind: str) -> dict:
            "reduced": "Switch-Base-8 puts an MoE layer in every other block; the "
                       "reference's design (and the port) in every block"}
     emit("moe_bert_base", **rec)
+    return rec, (model, opt, (ids, labels, mask))
+
+
+def phase_checkpoint(torch, M, state, kind: str, root: str) -> dict:
+    """Switch-Base-8 after ``moe_bert_base``'s timed steps, put under a
+    world-size-1 NCCL ``plan=`` state (``make_bert_train_state(plan=)``,
+    then its weights and AdamW state loaded), saved by the sharded
+    ``TrainCheckpointer`` (``torch.distributed.checkpoint``) into ``root``
+    and restored into a state built fresh from another seed: every
+    parameter and both moments of every one bit-equal.  Then one step from
+    the restored and one from the unbroken state on the same batch: their
+    losses must agree within the step's own run-to-run difference, measured
+    here as two passes of the same step with a learning rate of 0 (SGD: the
+    parameters stay bit for bit), bitwise if those agree, and the
+    parameters after the step, which the restored hyperparameters and
+    moments move, must be bit-equal.  The directory is deleted after the
+    phase."""
+    import torch.distributed as dist
+
+    from lakesoul_tpu_torch.parallel import make_mesh
+
+    model, opt, batch = state
+    cfg = model.cfg
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        plan = make_mesh()
+        live, live_opt = M.make_bert_train_state(cfg, plan=plan, seed=SEED)
+        live.load_state_dict(model.state_dict())
+        live_opt.load_state_dict(opt.state_dict())
+        del model, opt, state
+        torch.cuda.empty_cache()
+        step_no = WARMUP_STEPS + TIMED_STEPS + 2  # the hold's and the profile's steps too
+        ckpt = M.TrainCheckpointer(root, max_to_keep=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as host:
+            t0 = time.perf_counter()
+            ckpt.save(step_no, live.state_dict(), live_opt.state_dict(), plan=plan)
+            save_s = time.perf_counter() - t0
+        written = dir_bytes(root)
+        fresh, fresh_opt = M.make_bert_train_state(cfg, plan=plan, seed=SEED + 5)
+        with RssPeak() as host_restore:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, at = ckpt.restore_latest(
+                like=(fresh.state_dict(), fresh_opt.state_dict()), plan=plan)
+            fresh.load_state_dict(params)
+            fresh_opt.load_state_dict(opt_state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        del params, opt_state
+        peak_device = torch.cuda.max_memory_allocated() / 1e9
+        require(at == step_no, f"restored step {at}, saved {step_no}")
+        pairs = list(zip(live.named_parameters(), fresh.named_parameters()))
+        unequal = [n for (n, p), (_, q) in pairs if not torch.equal(p, q)]
+        unequal += [f"{n}.{k}" for (n, p), (_, q) in pairs
+                    for k in ("exp_avg", "exp_avg_sq", "step")
+                    if not torch.equal(live_opt.state[p][k], fresh_opt.state[q][k])]
+        require(not unequal, f"restored state != saved: {unequal[:8]}")
+        # the step's run-to-run difference: the same step twice, learning rate 0
+        probe = M.make_bert_train_step(live, torch.optim.SGD(live.parameters(), lr=0.0),
+                                       plan=plan)
+        twice = [float(probe(*batch)) for _ in range(2)]
+        spread = abs(twice[0] - twice[1])
+        unbroken = float(M.make_bert_train_step(live, live_opt, plan=plan)(*batch))
+        restored = float(M.make_bert_train_step(fresh, fresh_opt, plan=plan)(*batch))
+        after_equal = all(torch.equal(p, q) for (_, p), (_, q) in
+                          zip(live.named_parameters(), fresh.named_parameters()))
+        require(np.isfinite(unbroken) and abs(restored - unbroken) <= spread,
+                f"the restored state's next loss {restored} != the unbroken {unbroken} "
+                f"(run-to-run {spread})")
+        # the update reads the restored hyperparameters and moments, which the
+        # loss (taken before it) does not: both states' parameters after the
+        # step must be bit-equal (the step is deterministic on the card)
+        require(after_equal,
+                "the parameters after the restored state's step != the unbroken state's")
+        rec = {"config": "Switch-Base-8 (moe_bert_base's state after its steps) under a "
+                         "world-size-1 NCCL plan", "device_kind": kind,
+               "params": sum(p.numel() for p in live.parameters()), "step": step_no,
+               "mesh": {a: getattr(plan, a) for a in plan.axis_names},
+               "save_s": save_s, "restore_s": restore_s, "gb_written": written / 1e9,
+               "save_gb_per_s": written / 1e9 / save_s,
+               "restore_gb_per_s": written / 1e9 / restore_s,
+               "peak_device_gb": peak_device, "host_rss_mb_before": host.start_mb,
+               "host_peak_rss_mb_save": host.peak_mb,
+               "host_peak_rss_mb_restore": host_restore.peak_mb, "bit_equal": True,
+               "loss_unbroken": unbroken, "loss_restored": restored,
+               "step_run_to_run": spread, "probe_losses": twice,
+               "params_equal_after_the_step": after_equal}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    rec["host_rss_mb_after"] = rss_mb()  # the staging copies, once the phase let go of them
+    emit("checkpoint", **rec)
     return rec
 
 
@@ -2886,10 +3037,135 @@ def pinned_stats(torch) -> dict:
     return {k: v for k, v in stats().items() if "bytes" in k}
 
 
+def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
+    """``python -m lakesoul_tpu_torch.fleet train --device-put`` as two
+    processes on the one card (``LAKESOUL_FLEET_PROCESS_INDEX`` / ``_COUNT``
+    0/2 and 1/2) over the loader's table, publishing to a fleet spool: each
+    rank's sha256 must equal ``digest_batch`` folded over
+    ``scan.shard(rank, 2).to_torch_iter(device="cpu")`` here, the ranks'
+    rows must sum to ``count_rows()``, each must see a card, and the fleet
+    aggregator must read both members."""
+    from lakesoul_tpu_torch.fleet.multihost import digest_batch
+    from lakesoul_tpu_torch.obs.fleet import FleetAggregator
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spool = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(FLEET_RANKS):
+            env = dict(os.environ, LAKESOUL_FLEET_PROCESS_INDEX=str(rank),
+                       LAKESOUL_FLEET_PROCESS_COUNT=str(FLEET_RANKS), LAKESOUL_OBS_SPOOL=spool,
+                       PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "lakesoul_tpu_torch.fleet", "train", "--warehouse", wh,
+                 "--table", "bench", "--batch-size", str(LOADER_BATCH), "--device-put"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:  # past the timeout: stop every rank
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        lines = []
+        for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"fleet train rank {rank} exited {p.returncode}: "
+                                       f"{err[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+        members = FleetAggregator(spool, stale_after_s=3600).members()
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+    t0 = time.perf_counter()
+    oracle = []
+    for rank in range(FLEET_RANKS):
+        scan = L.LakeSoulCatalog(wh).scan("bench").batch_size(LOADER_BATCH).shard(rank,
+                                                                                 FLEET_RANKS)
+        digest, rows = hashlib.sha256(), 0
+        for b in scan.to_torch_iter(device="cpu", drop_remainder=False):
+            rows += digest_batch(digest, b)
+        oracle.append({"rows": rows, "sha256": digest.hexdigest()})
+    oracle_s = time.perf_counter() - t0
+    rec = {"config": f"{FLEET_RANKS} fleet train processes on one card over the loader's "
+                     f"table, batch {LOADER_BATCH}, --device-put", "device_kind": kind,
+           "ranks": [{**ln, "rows_per_s": ln["rows"] / ln["elapsed_s"]} for ln in lines],
+           "oracle": oracle, "oracle_s": oracle_s, "wall_s": wall, "count_rows": count,
+           "fleet_members": sorted(m["service_id"] for m in members),
+           "fleet_member_chips": sorted(m["chips"] for m in members)}
+    emit("fleet_train", **rec)
+    for rank, (ln, want) in enumerate(zip(lines, oracle)):
+        require((ln["rows"], ln["sha256"]) == (want["rows"], want["sha256"]),
+                f"fleet train rank {rank}: {ln} != the shard oracle {want}")
+        require(ln["local_devices"] >= 1 and ln["process_index"] == rank,
+                f"fleet train rank {rank} saw no card: {ln}")
+    require(sum(ln["rows"] for ln in lines) == count,
+            f"the ranks' rows {[ln['rows'] for ln in lines]} do not sum to {count}")
+    require(rec["fleet_members"] == [f"rank{r}" for r in range(FLEET_RANKS)]
+            and min(rec["fleet_member_chips"]) >= 1,
+            f"the fleet spool holds {rec['fleet_members']}, chips {rec['fleet_member_chips']}")
+    return rec
+
+
+def phase_sql(torch, M, L, t, kind: str) -> dict:
+    """The SQL layer on the loader's table, with pandas unimportable:
+    ``scan.filter(SQL_FILTER)`` feeds ``to_torch_iter`` into the loader's
+    MLP step, its rows = a numpy count over the same columns read without
+    the filter; ``SqlSession`` runs SQL_GROUP_BY: counts equal numpy's,
+    means within 1e-6 relative.  Host seconds."""
+    from lakesoul_tpu_torch.sql import SqlSession
+
+    held = sys.modules.get("pandas", False)
+    sys.modules["pandas"] = None  # any import of pandas on this path raises
+    try:
+        model = M.MLP(LOADER_FEATURES, hidden=LOADER_HIDDEN, seed=SEED, device=DEVICE)
+        step = M.make_mlp_train_step(model, M.adam(model.parameters(), LOADER_LR), device=DEVICE)
+        t0 = time.perf_counter()
+        rows, loss = 0, None
+        for b in t.scan().filter(SQL_FILTER).batch_size(LOADER_BATCH).to_torch_iter(
+                transform=loader_transform, io_threads=LOADER_IO_THREADS,
+                drop_remainder=False, device=DEVICE):
+            loss = step(b["x"].t(), b["y"])
+            rows += int(b["y"].shape[0])
+        torch.cuda.synchronize()
+        filter_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cols = t.scan().select(["f0", "label"]).to_arrow()
+        f0 = cols.column("f0").to_numpy()
+        label = cols.column("label").to_numpy()
+        want_rows = int(((f0 > 0.5) & (label == 1)).sum())
+        numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = SqlSession(t.catalog, device=DEVICE).execute(SQL_GROUP_BY)
+        sql_s = time.perf_counter() - t0
+    finally:
+        if held is False:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = held
+    groups = out.to_pylist()
+    want = [{"label": int(k), "n": int((label == k).sum()),
+             "mean_f0": float(np.mean(f0[label == k], dtype=np.float64))}
+            for k in np.unique(label)]
+    rec = {"device_kind": kind, "filter": SQL_FILTER, "rows_delivered": rows,
+           "numpy_rows": want_rows, "filter_s": filter_s, "loss_last": float(loss),
+           "numpy_s": numpy_s, "query": SQL_GROUP_BY, "sql_s": sql_s, "groups": groups,
+           "numpy_groups": want, "pandas_blocked": True}
+    emit("sql", **rec)
+    require(rows == want_rows > 0, f"the filtered feed gave {rows} rows, numpy {want_rows}")
+    require(bool(torch.isfinite(loss)), "a non-finite loss in the filtered feed's step")
+    require(len(groups) == len(want) and all(
+        g["label"] == w["label"] and g["n"] == w["n"]
+        and abs(g["mean_f0"] - w["mean_f0"]) <= 1e-6 * abs(w["mean_f0"])
+        for g, w in zip(groups, want)), f"GROUP BY {groups} != numpy {want}")
+    return rec
+
+
 def phase_loader(torch, M, L, kind: str) -> dict:
     """``bench.py``'s train leg on the card and its DataLoader comparator
-    (see the module docstring, phase 11).  The table and the parquet copy
-    live in a temp dir, removed after the phase."""
+    (see the module docstring, phase 11), then ``fleet_train`` and ``sql``
+    on the same table.  The table and the parquet copy live in a temp dir,
+    removed after the phase."""
     from lakesoul_tpu_torch import native
     from lakesoul_tpu_torch.obs.stages import stage_seconds
 
@@ -3032,6 +3308,8 @@ def phase_loader(torch, M, L, kind: str) -> dict:
             del loader  # stops the persistent workers
             baseline[f"workers_{workers}"] = runs
         base_best = max(r["rows_per_s"] for runs in baseline.values() for r in runs)
+        phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
+        phase_sql(torch, M, L, t, kind)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3068,6 +3346,7 @@ def main(argv: list) -> int:
     if argv[:1] == ["--plane-table"]:
         return plane_table_build(argv[1])
 
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3103,6 +3382,7 @@ def main(argv: list) -> int:
     import lakesoul_tpu_torch as L
 
     kernels = phase_kernels(torch, K, R)
+    phase_register(kind)
     sl = phase_slice(torch, K, R)
     torch.cuda.empty_cache()
     ex = phase_ex_slice(torch, K, R)
@@ -3132,14 +3412,18 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     phase_bert_base_table(torch, M, L, kind, bb)
     torch.cuda.empty_cache()
-    # 10c-10d. Switch-Base-8, and every plan step under NCCL on one card
-    phase_moe_bert_base(torch, M, C, kind)
+    # 10c-10e. Switch-Base-8, its state saved and restored sharded, and every
+    # plan step under NCCL on one card
+    phase_checkpoint(torch, M, phase_moe_bert_base(torch, M, C, kind)[1], kind,
+                     os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch",
+                                  "chip_smoke_checkpoint"))
     torch.cuda.empty_cache()
     phase_parallel(torch, M, C, kind)
     torch.cuda.empty_cache()
 
-    # 11. the table -> train-step loader and its replay cache (host code and
-    # torch ops: no hand kernel on its path)
+    # 11-11c. the table -> train-step loader and its replay cache, then the
+    # fleet train role and the SQL layer on its table (host code and torch
+    # ops: no hand kernel on their path)
     phase_loader(torch, M, L, kind)
     torch.cuda.empty_cache()
 
@@ -3162,6 +3446,7 @@ def main(argv: list) -> int:
             "library_call": library_call, **{k: t[k] for k in EXTRA_TIMINGS if k in t},
         })
     require(all(r["launches"] > 0 for r in record), "a kernel never ran on its path")
+    emit("command", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

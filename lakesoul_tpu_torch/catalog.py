@@ -10,9 +10,8 @@ the reference's ``to_torch`` dataset adapter.
 The port's copy of ``lakesoul_tpu/catalog.py``.  The table vector index
 (``build_vector_index``, ``vector_search``, ``scan().vector_search``) runs on
 the card unless ``device="cpu"`` is passed.  Layers that are not ported yet
-raise :class:`ConfigError` where the reference imports them lazily: string
-filters (``sql.parser``), ``via_scanplane``, ``follow`` and
-``to_huggingface``.
+raise :class:`ConfigError` where the reference imports them lazily:
+``via_scanplane`` and ``follow``.
 """
 
 from __future__ import annotations
@@ -721,11 +720,14 @@ class LakeSoulScan:
         return self._replace(_columns=list(columns))
 
     def filter(self, flt: "Filter | str") -> "LakeSoulScan":
-        """Add a pushdown predicate: a Filter node.  WHERE-style strings
-        need the SQL predicate grammar, which is not ported yet."""
+        """Add a pushdown predicate: a Filter node, or a WHERE-style string
+        (``scan.filter("f > 100 AND id IN (1, 2)")``) parsed by the SQL
+        predicate grammar."""
         if isinstance(flt, str):
-            raise ConfigError("string filters (the SQL predicate parser) are not ported yet")
-        if not isinstance(flt, Filter):
+            from lakesoul_tpu_torch.sql.parser import parse_predicate
+
+            flt = parse_predicate(flt)
+        elif not isinstance(flt, Filter):
             raise ConfigError(
                 f"filter() takes a Filter or a predicate string, got {type(flt).__name__}"
             )
@@ -1262,7 +1264,9 @@ class LakeSoulScan:
         return TorchIterableDataset(self)
 
     def to_huggingface(self, **kwargs):
-        raise ConfigError("the huggingface adapter is not ported yet")
+        from lakesoul_tpu_torch.data.hf_adapter import to_hf_dataset
+
+        return to_hf_dataset(self, **kwargs)
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()

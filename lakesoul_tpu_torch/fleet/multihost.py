@@ -61,16 +61,21 @@ def process_axis() -> "tuple[int, int]":
 
 
 def digest_batch(digest, batch: dict) -> int:
-    """Fold one collated host batch into a sha256 — the per-rank identity
+    """Fold one collated batch into a sha256 — the per-rank identity
     oracle (``fleet train`` output vs a single-process shard scan).
     Content-deterministic across processes: numeric arrays hash their
     buffer bytes; string/object columns hash their VALUES (an object
-    array's raw buffer is per-process pointers).  Returns the row count."""
+    array's raw buffer is per-process pointers).  A tensor on the card is
+    copied to the host first, so a card batch hashes as its host batch
+    does.  Returns the row count."""
     import numpy as np
 
     rows = None
     for name in sorted(batch):
-        arr = np.asarray(batch[name])
+        col = batch[name]
+        if getattr(col, "is_cuda", False):
+            col = col.cpu()
+        arr = np.asarray(col)
         rows = len(arr) if rows is None else rows
         digest.update(name.encode())
         if arr.dtype == object or arr.dtype.kind in ("U", "S"):

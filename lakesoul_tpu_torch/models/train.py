@@ -170,9 +170,28 @@ def make_bert_train_state(cfg: BertConfig, *, plan=None, lr: float = 1e-4, seed:
     return model, adamw(model.parameters(), lr)
 
 
+RULES_KEY = "sharding_rules"
+
+
+def state_dict_rules(state_dict) -> dict | None:
+    """The sharding rules a plan model's ``state_dict()`` was cut by
+    (``make_bert_train_state(plan=)``, ``make_bert_pipeline_train_state``);
+    None for a whole model's, or a dict that was copied out of one."""
+    return getattr(state_dict, "_metadata", {}).get("", {}).get(RULES_KEY)
+
+
 def _sliced(cfg: BertConfig, plan, rules: dict, seed: int) -> Bert:
+    """This rank's slice of ``Bert(cfg, seed=seed)`` by ``rules``.  Its
+    ``state_dict()`` carries the rules (``state_dict_rules``), so a sharded
+    checkpoint knows where each slice sits in the whole model."""
     model = Bert(cfg, seed=seed, device="cpu")
     load_local(model, shard_params(model.state_dict(), plan, rules))
+
+    def record(module, state_dict, prefix, local_metadata):
+        if not prefix:
+            local_metadata[RULES_KEY] = rules
+
+    model.register_state_dict_post_hook(record)
     return model.to(plan.device)
 
 
@@ -215,12 +234,12 @@ def make_bert_pipeline_train_state(cfg: BertConfig, plan, *, lr: float = 1e-4, s
     pipelining exists for) and the rest whole.  As in the reference's
     pipeline step, the other axes hold replicas (its stages see whole
     layers), and the batch splits over dp only."""
+    if cfg.layers % max(plan.pp, 1):
+        raise ValueError(f"{cfg.layers} layers do not split over pp={plan.pp}")
     if cfg.n_experts:
         # a pipelined MoE stage would all-gather every expert into every
         # stage in the reference: rejected there, rejected here
         raise ValueError("pipeline layout does not support MoE configs")
-    if cfg.layers % max(plan.pp, 1):
-        raise ValueError(f"{cfg.layers} layers do not split over pp={plan.pp}")
     model = _sliced(cfg, plan, pipeline_rules(param_sharding_rules(plan)), seed)
     return model, adamw(model.parameters(), lr)
 

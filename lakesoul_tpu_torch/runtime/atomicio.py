@@ -1,6 +1,6 @@
 """Atomic publication of one file (the subset of
-``lakesoul_tpu/runtime/atomicio.py`` that the checkpointer and the index and
-plane manifests use).
+``lakesoul_tpu/runtime/atomicio.py`` that the checkpointer, the index and
+plane manifests and the fleet spool use).
 
 Protocol on a local filesystem: write ``<path>.tmp-<pid>-<random>`` in the
 same directory, flush, fsync, then rename it onto ``path`` (atomic on
@@ -56,3 +56,19 @@ def publish_bytes(path: str | Path, data: bytes) -> None:
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)
+
+
+def fsync_dir(path: str | Path) -> None:
+    """fsync the directory ``path``, so a rename into it survives a host
+    crash.  Best-effort: a filesystem that refuses directory fsync (some
+    network mounts) does not fail the publication."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)

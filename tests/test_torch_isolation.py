@@ -10,9 +10,13 @@ created, written, upserted and read through ``to_torch_iter`` (a streamed
 epoch, then a replayed one with ``cache="device"``), a tiny vector
 table is indexed (``build_vector_index``) and searched (``vector_search``,
 ``scan().vector_search``), and a gloo process group of one rank takes a
-tiny BERT plan step (``parallel/``, ``make_mesh``) and a
-``cross_chip_topk``; every ``parallel`` module, ``annplane/collective``
-and ``entry`` are among the modules imported.  It has to be a subprocess: ``tests/conftest.py``
+tiny BERT plan step (``parallel/``, ``make_mesh``), saves and restores it
+through the sharded checkpointer, and takes a ``cross_chip_topk``; a SQL
+query, a string filter, the kernel register on the CPU and a fleet
+publisher read by its aggregator through the exporter run too; every
+``parallel`` module, ``annplane/collective``, ``entry`` and every module
+added with the SQL layer and the fleet plane are among the modules
+imported.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -156,10 +160,32 @@ _CHILD = textwrap.dedent(
     loss = make_bert_train_step(bert, opt, plan=plan, sequence_parallel="ulysses")(
         ids, np.where(rng.random((2, 16)) < 0.3, ids, -100), np.ones((2, 16), bool))
     assert bool(torch.isfinite(loss)), loss
+    from lakesoul_tpu_torch.models import TrainCheckpointer
+    ck = TrainCheckpointer(tempfile.mkdtemp())
+    ck.save(1, bert.state_dict(), opt.state_dict(), plan=plan)
+    p1, o1, at = ck.restore_latest(like=(bert.state_dict(), opt.state_dict()), plan=plan)
+    assert at == 1 and all(torch.equal(p1[k], v) for k, v in bert.state_dict().items())
     d, r, src = cross_chip_topk(np.array([0.5, 0.1], np.float32), np.array([7, 9], np.int32),
                                 k=1, group=dist.group.WORLD)
     assert (float(d[0]), int(r[0]), int(src[0])) == (np.float32(0.1), 9, 0)
     dist.destroy_process_group()
+    for name in ("sql.parser", "sql.executor", "sql.tpch", "obs.fleet", "obs.exporter",
+                 "obs.logging", "freshness.slo", "utils.memory", "tensorplane.smoke",
+                 "fleet.__main__", "models.checkpoint", "data.hf_adapter"):
+        assert f"lakesoul_tpu_torch.{name}" in mods, name
+    from lakesoul_tpu_torch.sql import SqlSession
+    out = SqlSession(cat, device="cpu").execute("SELECT count(*) AS n FROM t WHERE id < 10")
+    assert out.column("n").to_pylist() == [10], out
+    assert tbl.scan().filter("id < 10 AND v = 0").count_rows() == 5
+    from lakesoul_tpu_torch.tensorplane.smoke import run_smoke
+    report = run_smoke(device="cpu")
+    assert report["ok"] and {c["status"] for c in report["cases"]} == {"cpu_plain"}, report
+    from lakesoul_tpu_torch.obs import FleetAggregator, FleetPublisher, serve_prometheus
+    spool = tempfile.mkdtemp()
+    FleetPublisher(spool, flush_s=60.0).flush(reason="isolation")
+    srv = serve_prometheus(FleetAggregator(spool), port=0, host="127.0.0.1")
+    srv.shutdown()
+    assert len(FleetAggregator(spool).members()) == 1
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

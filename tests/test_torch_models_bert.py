@@ -124,11 +124,36 @@ def test_masked_nll_of_an_all_ignored_batch_is_zero():
     assert float(got) == 0.0 and bool(torch.isfinite(got))
 
 
+def _plan(pp: int):
+    from lakesoul_tpu.parallel.mesh import MeshPlan as JPlan
+    from lakesoul_tpu_torch.parallel.mesh import MeshPlan as TPlan
+
+    # every guard raises before the mesh is read
+    return JPlan(mesh=None, dp=1, tp=1, sp=1, pp=pp), TPlan(mesh=None, dp=1, tp=1, sp=1, pp=pp)
+
+
 def test_moe_configs_raise():
     """MoE configs build now (below); the layout the reference rejects for
     them, the pipeline's (``train.py:148-152``), raises here too."""
     with pytest.raises(ValueError, match="pipeline layout does not support MoE configs"):
-        make_bert_pipeline_train_state(_moe_cfg(), None)
+        make_bert_pipeline_train_state(_moe_cfg(), _plan(1)[1])
+
+
+@pytest.mark.parametrize("layers,n_experts,pp", [(2, 4, 1), (3, 0, 2), (3, 2, 2)],
+                         ids=["moe", "split", "both"])
+def test_pipeline_state_guards_raise_the_reference_message(layers, n_experts, pp):
+    """The reference checks the split over pp first, then MoE
+    (``lakesoul_tpu/models/train.py:144-151``): a config failing both
+    raises the split's message in both packages."""
+    from lakesoul_tpu.models import train as JT
+
+    jplan, tplan = _plan(pp)
+    over = {"layers": layers, "n_experts": n_experts}
+    with pytest.raises(ValueError) as want:
+        JT.make_bert_pipeline_train_state(JB.BertConfig(**{**_jcfg().__dict__, **over}), jplan)
+    with pytest.raises(ValueError) as got:
+        make_bert_pipeline_train_state(TB.BertConfig(**{**_cfg().__dict__, **over}), tplan)
+    assert str(got.value) == str(want.value)
 
 
 def _moe_cfg(dtype="float32"):
@@ -288,20 +313,43 @@ def test_tied_tok_emb_gradient_sums_the_gather_and_the_head(reference, port_f32)
     assert np.abs(gather[seen & ~live]).max() < 1e-6 * np.abs(full).max()
 
 
-def test_one_adamw_step_matches_optax(reference):
+@pytest.mark.parametrize("case", ["optimizer", "step"])
+def test_one_adamw_step_matches_optax(case, reference):
     """``make_bert_train_state``'s AdamW (lr 1e-4, weight decay 1e-4)
-    against ``optax.adamw(1e-4)`` fed the reference's gradients."""
+    against ``optax.adamw(1e-4)``.
+
+    ``optimizer``: both are fed the reference's gradients (set as ``.grad``,
+    then ``opt.step()``), so two optimizers meet identical input.  The first
+    Adam step moves each param by lr · g / (|g| + 1e-8), which magnifies a
+    gradient's last bits where |g| is near 1e-8: fed each framework's own
+    gradients, one element in 65,536 of ``layers.w2`` moved 1.34e-6 apart.
+    ``step``: the port's train step takes the loss and the gradients of the
+    same batch itself, held against the reference's as ``test_f32_gradient``
+    holds them."""
     params = reference["params"]
+    model, opt = make_bert_train_state(_cfg(), device="cpu")
+    model.load_state_dict(convert.from_reference_params(params))
+    if case == "step":
+        ids, labels, mask = _batch()
+        loss = make_bert_train_step(model, opt, device="cpu")(ids, labels, mask)
+        np.testing.assert_allclose(float(loss), reference["loss"], rtol=1e-4)
+        view = TB.Bert(model.cfg, device="cpu")
+        view.load_state_dict({n: p.grad for n, p in model.named_parameters()})
+        grads = convert._flatten(convert.to_reference_params(view))
+        assert sorted(grads) == sorted(reference["grads"])
+        for k, want in reference["grads"].items():
+            np.testing.assert_allclose(grads[k], want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max(), err_msg=k)
+        return
     tx = optax.adamw(1e-4)
     updates, _ = tx.update(convert._unflatten(reference["grads"]), tx.init(params), params)
     want = convert._flatten(jax.tree.map(np.asarray, optax.apply_updates(params, updates)))
-    model, opt = make_bert_train_state(_cfg(), device="cpu")
-    model.load_state_dict(convert.from_reference_params(params))
-    ids, labels, mask = _batch()
-    loss = make_bert_train_step(model, opt, device="cpu")(ids, labels, mask)
-    np.testing.assert_allclose(float(loss), reference["loss"], rtol=1e-4)
+    grads = convert.from_reference_params(convert._unflatten(reference["grads"]))
+    for n, p in model.named_parameters():
+        p.grad = grads[n].clone()
+    opt.step()
     got = convert._flatten(convert.to_reference_params(model))
+    assert sorted(got) == sorted(want)
     for k, v in got.items():
-        # the first Adam step moves each param by lr · g / (|g| + 1e-8), ±lr
-        # wherever |g| >> 1e-8: the port must agree on every sign; atol 1 % of lr
+        # ±lr wherever |g| >> 1e-8: the port must agree on every sign; atol 1 % of lr
         np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-6, err_msg=k)

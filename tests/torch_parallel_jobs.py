@@ -1,6 +1,7 @@
 """What the port's gloo ranks run for the multi-rank tests
 (``tests/test_torch_parallel.py``, ``test_torch_moe.py``,
-``test_torch_train_parallel.py``, ``test_torch_collective.py``).
+``test_torch_train_parallel.py``, ``test_torch_collective.py``,
+``test_torch_checkpoint.py``).
 
 Each job runs on every rank of one ``parallel.launch.run_ranks`` call
 (torch and the port only: no jax in the ranks), builds its meshes with
@@ -241,3 +242,80 @@ def fail_on(rank: int) -> int:
     if dist.get_rank() == rank:
         raise ValueError(f"rank {rank} fails on purpose")
     return dist.get_rank()
+
+
+# --------------------------------------------------------------- checkpoint
+def _gathered_state(plan, model, opt, rules) -> dict:
+    """The gathered parameters and AdamW state (each moment gathered as its
+    parameter, each step count as it is), numpy copies (a replicated leaf
+    gathers to the live tensor itself), the same on every rank."""
+    named = dict(model.named_parameters())
+    out = {"params": {k: _np(v).copy() for k, v in gather_params(named, plan, rules).items()}}
+    for m in ("exp_avg", "exp_avg_sq"):
+        local = {n: opt.state[p][m] for n, p in named.items()}
+        out[m] = {k: _np(v).copy() for k, v in gather_params(local, plan, rules).items()}
+    out["step"] = sorted({float(opt.state[p]["step"]) for p in named.values()})
+    return out
+
+
+def _bert_state(plan, cfg, mode, lr, seed):
+    if mode == "pipeline":
+        model, opt = TR.make_bert_pipeline_train_state(cfg, plan, lr=lr, seed=seed)
+        step = TR.make_bert_pipeline_train_step(model, opt, plan)
+        return model, opt, step, pipeline_rules(param_sharding_rules(plan)), False
+    model, opt = TR.make_bert_train_state(cfg, plan=plan, lr=lr, seed=seed)
+    return model, opt, TR.make_bert_train_step(model, opt, plan=plan), None, True
+
+
+def checkpoint_save(root: str, sizes: dict, cfg_fields: dict, mode: str, batch, lr: float,
+                    steps: int) -> dict:
+    """``steps`` AdamW steps, a sharded save at step ``steps``, a restore
+    into a fresh state (another seed, other hyperparameters: the saved ones
+    must come back) under the same plan, then one more step from the
+    unbroken and from the restored state → the gathered state saved and
+    restored, both losses and both states' parameters after the step.  A
+    save of a copy of the state dict, which lost the model's sharding
+    rules, must be refused."""
+    from lakesoul_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    plan = make_mesh(**sizes, device_type="cpu")
+    cfg = BertConfig(**cfg_fields)
+    model, opt, step, rules, seq = _bert_state(plan, cfg, mode, lr, 0)
+    local = [plan.shard_batch(a, seq=seq) for a in batch]
+    for _ in range(steps):
+        step(*local)
+    ckpt = TrainCheckpointer(root)
+    try:
+        ckpt.save(steps, dict(model.state_dict()), opt.state_dict(), plan=plan)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    ckpt.save(steps, model.state_dict(), opt.state_dict(), plan=plan)
+    saved = _gathered_state(plan, model, opt, rules)
+    model2, opt2, step2, _, _ = _bert_state(plan, cfg, mode, lr * 3, 7)
+    for g in opt2.param_groups:
+        g.update(weight_decay=0.5, eps=1e-3, betas=(0.5, 0.5))
+    params, opt_state, at = ckpt.restore_latest(
+        like=(model2.state_dict(), opt2.state_dict()), plan=plan)
+    model2.load_state_dict(params)
+    opt2.load_state_dict(opt_state)
+    restored = _gathered_state(plan, model2, opt2, rules)
+    out = {"saved": saved, "restored": restored, "step": at, "refused": refused,
+           "loss_unbroken": float(step(*local)), "loss_restored": float(step2(*local))}
+    out["after_unbroken"] = _gathered_state(plan, model, opt, rules)["params"]
+    out["after_restored"] = _gathered_state(plan, model2, opt2, rules)["params"]
+    return out
+
+
+def checkpoint_restore(root: str, sizes: dict, cfg_fields: dict, mode: str, lr: float) -> dict:
+    """Restore the latest step under root onto this plan → its gathered
+    state."""
+    from lakesoul_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    plan = make_mesh(**sizes, device_type="cpu")
+    model, opt, _, rules, _ = _bert_state(plan, BertConfig(**cfg_fields), mode, lr, 7)
+    params, opt_state, at = TrainCheckpointer(root).restore_latest(
+        like=(model.state_dict(), opt.state_dict()), plan=plan)
+    model.load_state_dict(params)
+    opt.load_state_dict(opt_state)
+    return {"step": at, "restored": _gathered_state(plan, model, opt, rules)}
