@@ -5,14 +5,17 @@
 
 Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
 serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
-plane, at 4 bits (built from a table) and at 1 — then the table vector
-index, then its three training steps (the Titanic MLP, read from a table,
-ResNet-50 and BERT-base MLM, each on a fixed batch and fed from a table),
-Switch-Base-8 (BERT-base with 8 experts), its state saved and restored
-sharded, and every sharded train step under one NCCL rank, then the table →
+plane, at 4 bits (built from a table, and served over the Flight
+gateway's ``ann_search``) and at 1 — then the table vector index (served
+over ``vector_search`` too), then its three training steps (the Titanic
+MLP, read from a table, ResNet-50 and BERT-base MLM, each on a fixed batch
+and fed from a table), Switch-Base-8 (BERT-base with 8 experts), its state
+saved and restored sharded, and every sharded train step under one NCCL
+rank, then the table →
 train-step loader on a 20M-row table beside a stock DataLoader and its device
-replay cache, the fleet train role and the SQL layer on that table, and
-fails if any phase fails.
+replay cache, the fleet train role and the SQL layer on that table, then
+the scan plane (a gateway and two worker processes) feeding the same step
+and the fleet train role through it, and fails if any phase fails.
 Each phase prints one JSON line with its own timing:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
@@ -104,6 +107,23 @@ Each phase prints one JSON line with its own timing:
              the corpus's vectors; build seconds, search p50 / p99 (the
              searches share one ``TableVectorIndex``, so they run with the
              shards open; the first, which opens them, is timed apart).
+7c. gateway_ann — inside the 4-bit plane's phase: an in-process
+             ``LakeSoulFlightServer`` (JWT secret) over the table the plane
+             was built from, the plane bound as ``AnnPlaneBinding(
+             ShardedAnnEndpoint(...), "default", "corpus")``; a user
+             registered in the table's metadata logs in (basic credentials
+             → bearer), then the endpoint's traffic (64 clients × 64
+             requests at mixed nprobe, each client one request at a time,
+             all in a process of their own: ``--gateway-clients``) goes
+             through ``ann_search``: every answer's ids and distances
+             bit-equal to the in-process endpoint's for the same (query,
+             nprobe), ``ragged_score`` launched (counted from 0 around the
+             traffic); QPS, p50 / p99 beside the endpoint's.
+7d. gateway_vector — the table index behind the gateway's
+             ``vector_search`` (``device=None``: the card; the server holds
+             the opened shards): the 64 queries, each answer bit-equal to
+             the direct ``vector_search``'s, ``packed_dot`` launched
+             (counted); p50 / p99 beside the direct calls'.
 8. mlp     — BASELINE config 1 as ``examples/titanic_mlp.py`` runs it: the
              example's 2,000 synthetic rows (its own copy) written to a
              ``hash_bucket_num=4`` table keyed by ``passenger_id``, an
@@ -213,9 +233,28 @@ Each phase prints one JSON line with its own timing:
              unfiltered columns; ``SqlSession``'s ``GROUP BY label`` count and
              ``avg(f0)`` = numpy's (counts exact, means 1e-6 relative); host
              seconds.
+11d. scanplane — on the loader's table, ``python -m
+             lakesoul_tpu_torch.scanplane service --workers 2`` as a child
+             (its spool on ``/dev/shm`` when ``df`` shows room for the
+             table's ~1.5 GB of segments, else the git-ignored ``.scratch/``;
+             which, recorded): ``t.scan().via_scanplane(location)
+             .to_torch_iter(...)`` at batch 524,288 into the loader's MLP step
+             on the card, a cold epoch (the workers decode while the trainer
+             reads) and a warm one (the spooled session), rows =
+             ``count_rows()`` each; a remote epoch's card batches copied back
+             = the local ``to_torch_iter``'s by sha256, and again with
+             ``LAKESOUL_FLEET_TRANSPORT=stream``; the shm rung negotiated, both
+             workers' ``lakesoul_scan_stage_seconds`` series merged here;
+             rows/s beside the local loader's, busy and ``queue`` shares,
+             spool bytes, service start seconds.  The service is stopped by
+             SIGINT; a worker alive afterwards fails the run.
+11e. fleet_train_location — inside 11d: the two ``fleet train`` ranks of
+             11b with ``--location`` (reading through the gateway), each =
+             the shard oracle of 11b, rows summing to ``count_rows()``.
 
-Each ANN path's kernel launch counts are set to 0 just before it is driven and
-read just after; every kernel must have run on its path.
+Each ANN path's kernel launch counts (and each gateway phase's) are set to 0
+just before it is driven and read just after; every kernel must have run on
+its path.
 
 The last three lines are the command's seconds (``command``), the kernels'
 JSON record and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -229,7 +268,9 @@ import hashlib
 import json
 import os
 import re
+import secrets
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -314,6 +355,11 @@ TENSOR_REPLAY_FLOOR = 2.0  # benchmarks/micro.py:1514-1518: replay >= 2x the str
 REPLAY_EPOCHS = 2  # replay epochs timed after the fill epoch, best of
 # slice 5's fleet train role and slice 6's SQL layer on the loader's table
 FLEET_RANKS, FLEET_TIMEOUT_S = 2, 300
+# the scan plane on the loader's table: its service's worker processes, how
+# long its first line and its stop may take, a spool row's bytes (id int64,
+# f0..f15 float32, label int32) and the share of /dev/shm's free bytes kept
+SCANPLANE_WORKERS, SCANPLANE_START_S, SCANPLANE_STOP_S = 2, 120, 30
+SPOOL_ROW_BYTES, SPOOL_SPARE = 76, 1.25
 SQL_FILTER = "f0 > 0.5 AND label = 1"
 SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
                 "ORDER BY label")
@@ -363,6 +409,11 @@ def ptxas_kernels(log: str) -> list:
         if m:
             out.append([name, int(m.group(1)), *spill])
     return out
+
+
+def device_kind(torch) -> str:
+    """The card's name (``"cpu"`` when a rehearsal runs on the CPU)."""
+    return "cpu" if DEVICE == "cpu" else torch.cuda.get_device_name(0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1352,6 +1403,137 @@ def serve_plane(ep, qs_np) -> tuple[dict, list, float]:
     return served, errors, time.perf_counter() - t
 
 
+def gateway_clients(workdir: str) -> int:
+    """``chip_smoke.py --gateway-clients DIR``: :func:`serve_gateway` in a
+    process of its own, so the clients' threads do not share the gateway's
+    interpreter.  Reads ``DIR/args.json`` (location, token and the parent's
+    traffic sizes) and ``DIR/queries.npy``; writes ``DIR/answers.json``."""
+    global SERVE_CLIENTS, SERVE_PER_CLIENT, PLANE_MIXED
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(workdir, "args.json")) as f:
+        args = json.load(f)
+    SERVE_CLIENTS, SERVE_PER_CLIENT = args["clients"], args["per_client"]
+    PLANE_MIXED = tuple(args["mixed"])
+    answers, lat, errors, wall = serve_gateway(args["location"], args["token"],
+                                               np.load(os.path.join(workdir, "queries.npy")))
+    with open(os.path.join(workdir, "answers.json"), "w") as f:
+        json.dump({"answers": [[list(k), a] for k, a in answers], "lat": lat, "errors": errors,
+                   "wall": wall}, f)
+    return 0
+
+
+def serve_gateway(loc: str, token: str, qs_np) -> tuple[list, list, list, float]:
+    """``serve_plane``'s traffic through the gateway's ``ann_search``:
+    SERVE_CLIENTS threads, each a Flight client sending its SERVE_PER_CLIENT
+    requests one after another, the same (query, nprobe) keys.  Returns
+    (key, answer) pairs, latencies in s, errors and the wall seconds."""
+    from lakesoul_tpu_torch.service import LakeSoulFlightClient
+
+    answers, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(ci):
+        try:
+            c = LakeSoulFlightClient(loc, token=token)
+            for j in range(SERVE_PER_CLIENT):
+                qi, npb = (ci * 31 + j) % len(qs_np), PLANE_MIXED[(ci + j) % len(PLANE_MIXED)]
+                t0 = time.perf_counter()
+                raw = c.action("ann_search", {"plane": "plane4", "query": qs_np[qi].tolist(),
+                                              "nprobe": int(npb)})[0]
+                dt = time.perf_counter() - t0
+                with lock:
+                    answers.append(((qi, int(npb)), json.loads(raw)))
+                    lat.append(dt)
+        except Exception as e:  # surfaced by the caller: a failed client fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return answers, lat, errors, time.perf_counter() - t
+
+
+def same_answer(ans: dict, ids, dists) -> bool:
+    """A gateway answer (JSON) = an in-process answer, ids and float32
+    distances bit for bit."""
+    return (ans["ids"] == [int(i) for i in ids]
+            and np.array_equal(np.asarray(ans["distances"], np.float32),
+                               np.asarray(dists, np.float32)))
+
+
+def phase_gateway_ann(torch, K, R, L, plane, params, qs_np, served: dict, endpoint: dict,
+                      wh: str, kind: str) -> dict:
+    """The 4-bit plane served over Flight: an in-process
+    ``LakeSoulFlightServer`` (a JWT secret) on the table the plane was built
+    from, the plane bound as ``AnnPlaneBinding(ShardedAnnEndpoint(plane,
+    ...), "default", "corpus")``; a user registered in the table's metadata
+    logs in (basic credentials → bearer), then ``serve_plane``'s traffic
+    goes through ``ann_search`` from a client process of its own
+    (``--gateway-clients``).  Every answer must equal the in-process
+    endpoint's for the same (query, nprobe) exactly, and ``ragged_score``
+    must launch (counted from 0 around the traffic)."""
+    from lakesoul_tpu_torch.annplane import AnnPlaneBinding, ShardedAnnEndpoint
+    from lakesoul_tpu_torch.service import LakeSoulFlightClient, LakeSoulFlightServer
+    from lakesoul_tpu_torch.service.jwt import UserRegistry
+
+    catalog = L.LakeSoulCatalog(wh)
+    password = secrets.token_hex(8)
+    UserRegistry(catalog.client).register("chip_smoke", password)
+    t0 = time.perf_counter()
+    with ShardedAnnEndpoint(plane, params, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                            max_pending=2 * SERVE_CLIENTS * SERVE_DEPTH,
+                            name="chip_smoke_gateway") as ep:
+        server = LakeSoulFlightServer(catalog, jwt_secret=secrets.token_hex(16), device=DEVICE,
+                                      ann_planes={"plane4": AnnPlaneBinding(ep, "default",
+                                                                            "corpus")})
+        threading.Thread(target=server.serve, daemon=True).start()
+        try:
+            loc = f"grpc://127.0.0.1:{server.port}"
+            token = LakeSoulFlightClient(loc, basic_auth=("chip_smoke", password)).login()
+            setup_s = time.perf_counter() - t0
+            LakeSoulFlightClient(loc, token=token).action(
+                "ann_search", {"plane": "plane4", "query": qs_np[0].tolist()})  # warm
+            cdir = tempfile.mkdtemp(prefix="chip_smoke_clients_")
+            with open(os.path.join(cdir, "args.json"), "w") as f:
+                json.dump({"location": loc, "token": token, "clients": SERVE_CLIENTS,
+                           "per_client": SERVE_PER_CLIENT, "mixed": list(PLANE_MIXED)}, f)
+            np.save(os.path.join(cdir, "queries.npy"), qs_np)
+            reset_launches(K, R)
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--gateway-clients",
+                                   cdir], capture_output=True, text=True, timeout=900)
+            launches = read_launches(K, R)
+            stats = ep.stats()
+            require(proc.returncode == 0, f"the gateway's clients exited {proc.returncode}: "
+                                          f"{proc.stderr[-3000:]}")
+            with open(os.path.join(cdir, "answers.json")) as f:
+                out = json.load(f)
+            shutil.rmtree(cdir, ignore_errors=True)
+            answers = [(tuple(k), a) for k, a in out["answers"]]
+            lat, errors, wall = out["lat"], out["errors"], out["wall"]
+        finally:
+            server.shutdown()
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    held = sum(same_answer(ans, *served[key]) for key, ans in answers)
+    lat_ms = np.array(lat) * 1e3 if lat else np.zeros(1)
+    rec = {"config": f"4-bit plane behind LakeSoulFlightServer ann_search, {SERVE_CLIENTS} "
+                     f"clients x {SERVE_PER_CLIENT} at mixed nprobe {list(PLANE_MIXED)}",
+           "device_kind": kind, "requests": len(answers), "setup_s": setup_s,
+           "qps": len(answers) / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "endpoint_qps": endpoint["qps"],
+           "endpoint_p50_ms": endpoint["p50_s"] * 1e3, "endpoint_p99_ms": endpoint["p99_s"] * 1e3,
+           "mean_batch": stats["mean_batch"], "held_exactly": f"{held}/{len(answers)}",
+           "launches": launches, "errors": errors[:3]}
+    emit("gateway_ann", **rec)
+    require(not errors and len(answers) == n_req, f"gateway clients failed: {errors[:3]}")
+    require(held == n_req, f"{n_req - held} of {n_req} gateway answers != the endpoint's")
+    require(launches["ragged_score"] > 0, f"ragged_score never ran behind the gateway: "
+                                          f"{launches}")
+    return {"launches": launches}
+
+
 def plane_digests(root: str) -> list:
     """One sha256 a shard of a plane directory: over its centroids and the
     bytes of every array of every segment, field by field (the npz files
@@ -1621,6 +1803,13 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
         recall = recall_at_k(truth, b_ids[:N_ORACLE])
         floor = LEG_RECALL_FLOOR if bits == 4 else RECALL_FLOOR
         require(recall >= floor, f"{bits}-bit plane recall@10 {recall} < {floor}")
+        # the plane behind the Flight gateway (the 4-bit plane: it has the
+        # table it was built from to check RBAC against)
+        gateway = (phase_gateway_ann(
+            torch, K, R, L, plane, params, qs_np, served,
+            {"qps": n_req / serve_s, "p50_s": stats["latency_p50"],
+             "p99_s": stats["latency_p99"]}, os.path.join(workdir, "wh"), device_kind(torch))
+            if from_table else None)
         prof = profile(torch, lambda: plane.batch_search(qs_np, params))
 
         # ragged_score on every shard's real item tables from one 256-query
@@ -1731,7 +1920,7 @@ def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
         profile_batch_1024=prof,
     )
     return {"launches": launches, "errs": {"ragged_score": ragged_err},
-            "ragged_timing": ragged_timing, "top": top}
+            "ragged_timing": ragged_timing, "top": top, "gateway": gateway}
 
 
 def make_synthetic_titanic(n: int = TITANIC_ROWS, seed: int = SEED) -> dict:
@@ -2695,6 +2884,7 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
         held = sum(same_topk(c[0], c[1], g[0], g[1]) for c, g in zip(cpu, got))
         require(held == VT_QUERIES, f"the table index on the card != on the CPU on "
                                     f"{VT_QUERIES - held} of {VT_QUERIES} queries")
+        gateway = phase_gateway_vector(K, R, t, qs_np, got, lat, kind)
     finally:
         shutil.rmtree(wh, ignore_errors=True)
     del x, queries
@@ -2711,6 +2901,56 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
            "card_equals_cpu": f"{held}/{VT_QUERIES}", "cpu_search_s": cpu_s,
            "launches": launches}
     emit("vector_table", **rec)
+    return {"launches": launches, "gateway": gateway}
+
+
+def phase_gateway_vector(K, R, t, qs_np, direct: list, direct_lat: list, kind: str) -> dict:
+    """The table index served over Flight: an in-process
+    ``LakeSoulFlightServer`` (a JWT secret, ``device=None``: the card) on the
+    table's catalog, a bearer token, the VT_QUERIES queries through the
+    ``vector_search`` action.  Each answer must equal the direct
+    ``vector_search`` of the counted main path exactly, and ``packed_dot``
+    must launch (counted from 0 around the queries)."""
+    from lakesoul_tpu_torch.service import LakeSoulFlightClient, LakeSoulFlightServer
+    from lakesoul_tpu_torch.service.jwt import Claims, JwtServer
+
+    secret = secrets.token_hex(16)
+    server = LakeSoulFlightServer(t.catalog, jwt_secret=secret, device=None)
+    threading.Thread(target=server.serve, daemon=True).start()
+    try:
+        client = LakeSoulFlightClient(f"grpc://127.0.0.1:{server.port}",
+                                      token=JwtServer(secret).create_token(Claims("chip_smoke")))
+
+        def ask(q):
+            return json.loads(client.action("vector_search", {
+                "table": t.info.table_name, "column": "emb", "query": q.tolist(), "top_k": 10,
+                "nprobe": VT_NPROBE})[0])
+
+        t0 = time.perf_counter()
+        ask(qs_np[0])  # opens the shards on the card, as the direct path's first search
+        first_s = time.perf_counter() - t0
+        reset_launches(K, R)
+        got, lat = [], []
+        for q in qs_np:
+            t0 = time.perf_counter()
+            got.append(ask(q))
+            lat.append(time.perf_counter() - t0)
+        launches = read_launches(K, R)
+    finally:
+        server.shutdown()
+    held = sum(same_answer(g, *d) for g, d in zip(got, direct))
+    lat_ms, d_ms = np.array(lat) * 1e3, np.array(direct_lat) * 1e3
+    rec = {"config": "the table index behind LakeSoulFlightServer vector_search, "
+                     f"{len(qs_np)} queries at nprobe {VT_NPROBE}", "device_kind": kind,
+           "first_s": first_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "direct_p50_ms": float(np.percentile(d_ms, 50)),
+           "direct_p99_ms": float(np.percentile(d_ms, 99)),
+           "held_exactly": f"{held}/{len(qs_np)}", "launches": launches}
+    emit("gateway_vector", **rec)
+    require(held == len(qs_np), f"{len(qs_np) - held} of {len(qs_np)} gateway answers != the "
+                                "direct vector_search's")
+    require(launches["packed_dot"] > 0, f"packed_dot never ran behind the gateway: {launches}")
     return {"launches": launches}
 
 
@@ -3037,6 +3277,48 @@ def pinned_stats(torch) -> dict:
     return {k: v for k, v in stats().items() if "bytes" in k}
 
 
+def run_fleet_ranks(wh: str, extra=(), env_extra=None) -> tuple[list, float]:
+    """``python -m lakesoul_tpu_torch.fleet train --device-put`` as
+    FLEET_RANKS processes on the one card; their JSON lines and the wall
+    seconds.  A rank still running at FLEET_TIMEOUT_S is killed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(FLEET_RANKS):
+        env = dict(os.environ, LAKESOUL_FLEET_PROCESS_INDEX=str(rank),
+                   LAKESOUL_FLEET_PROCESS_COUNT=str(FLEET_RANKS), **(env_extra or {}),
+                   PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "lakesoul_tpu_torch.fleet", "train", "--warehouse", wh,
+             "--table", "bench", "--batch-size", str(LOADER_BATCH), "--device-put", *extra],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:  # past the timeout: stop every rank
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"fleet train rank {rank} exited {p.returncode}: "
+                                   f"{err[-3000:]}")
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+    return lines, time.perf_counter() - t0
+
+
+def check_fleet_lines(lines: list, oracle: list, count: int, what: str) -> None:
+    """Each rank's (rows, sha256) = the shard oracle's, each saw a card, and
+    the ranks' rows sum to ``count_rows()``."""
+    for rank, (ln, want) in enumerate(zip(lines, oracle)):
+        require((ln["rows"], ln["sha256"]) == (want["rows"], want["sha256"]),
+                f"{what} rank {rank}: {ln} != the shard oracle {want}")
+        require(ln["local_devices"] >= 1 and ln["process_index"] == rank,
+                f"{what} rank {rank} saw no card: {ln}")
+    require(sum(ln["rows"] for ln in lines) == count,
+            f"{what}: the ranks' rows {[ln['rows'] for ln in lines]} do not sum to {count}")
+
+
 def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
     """``python -m lakesoul_tpu_torch.fleet train --device-put`` as two
     processes on the one card (``LAKESOUL_FLEET_PROCESS_INDEX`` / ``_COUNT``
@@ -3044,36 +3326,14 @@ def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
     rank's sha256 must equal ``digest_batch`` folded over
     ``scan.shard(rank, 2).to_torch_iter(device="cpu")`` here, the ranks'
     rows must sum to ``count_rows()``, each must see a card, and the fleet
-    aggregator must read both members."""
+    aggregator must read both members.  Returns the record, whose
+    ``oracle`` the ``--location`` leg (``phase_scanplane``) is held to."""
     from lakesoul_tpu_torch.fleet.multihost import digest_batch
     from lakesoul_tpu_torch.obs.fleet import FleetAggregator
 
-    here = os.path.dirname(os.path.abspath(__file__))
     spool = tempfile.mkdtemp(prefix="chip_smoke_obs_")
     try:
-        t0 = time.perf_counter()
-        procs = []
-        for rank in range(FLEET_RANKS):
-            env = dict(os.environ, LAKESOUL_FLEET_PROCESS_INDEX=str(rank),
-                       LAKESOUL_FLEET_PROCESS_COUNT=str(FLEET_RANKS), LAKESOUL_OBS_SPOOL=spool,
-                       PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "lakesoul_tpu_torch.fleet", "train", "--warehouse", wh,
-                 "--table", "bench", "--batch-size", str(LOADER_BATCH), "--device-put"],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        try:
-            outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
-        finally:
-            for p in procs:  # past the timeout: stop every rank
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        lines = []
-        for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
-            require(p.returncode == 0, f"fleet train rank {rank} exited {p.returncode}: "
-                                       f"{err[-3000:]}")
-            lines.append(json.loads(out.strip().splitlines()[-1]))
-        wall = time.perf_counter() - t0
+        lines, wall = run_fleet_ranks(wh, env_extra={"LAKESOUL_OBS_SPOOL": spool})
         members = FleetAggregator(spool, stale_after_s=3600).members()
     finally:
         shutil.rmtree(spool, ignore_errors=True)
@@ -3094,13 +3354,7 @@ def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
            "fleet_members": sorted(m["service_id"] for m in members),
            "fleet_member_chips": sorted(m["chips"] for m in members)}
     emit("fleet_train", **rec)
-    for rank, (ln, want) in enumerate(zip(lines, oracle)):
-        require((ln["rows"], ln["sha256"]) == (want["rows"], want["sha256"]),
-                f"fleet train rank {rank}: {ln} != the shard oracle {want}")
-        require(ln["local_devices"] >= 1 and ln["process_index"] == rank,
-                f"fleet train rank {rank} saw no card: {ln}")
-    require(sum(ln["rows"] for ln in lines) == count,
-            f"the ranks' rows {[ln['rows'] for ln in lines]} do not sum to {count}")
+    check_fleet_lines(lines, oracle, count, "fleet train")
     require(rec["fleet_members"] == [f"rank{r}" for r in range(FLEET_RANKS)]
             and min(rec["fleet_member_chips"]) >= 1,
             f"the fleet spool holds {rec['fleet_members']}, chips {rec['fleet_member_chips']}")
@@ -3158,6 +3412,218 @@ def phase_sql(torch, M, L, t, kind: str) -> dict:
         g["label"] == w["label"] and g["n"] == w["n"]
         and abs(g["mean_f0"] - w["mean_f0"]) <= 1e-6 * abs(w["mean_f0"])
         for g, w in zip(groups, want)), f"GROUP BY {groups} != numpy {want}")
+    return rec
+
+
+def proc_children(pid: int) -> list:
+    """The pids whose parent is ``pid`` (from ``/proc``)."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(name))
+    return out
+
+
+def proc_alive(pid: int) -> bool:
+    """True while ``pid`` runs (a zombie counts as ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def spool_base(need_bytes: int) -> tuple[str, str]:
+    """``/dev/shm`` when ``df`` shows room for ``need_bytes`` with a quarter
+    to spare, else the git-ignored ``.scratch/`` beside this script; and
+    which it is."""
+    try:
+        free = shutil.disk_usage("/dev/shm").free
+    except OSError:
+        free = 0
+    if free >= SPOOL_SPARE * need_bytes and os.access("/dev/shm", os.W_OK):
+        return "/dev/shm", "tmpfs /dev/shm"
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch")
+    os.makedirs(base, exist_ok=True)
+    return base, "disk .scratch/"
+
+
+def start_scanplane_service(wh: str, spool: str, log) -> tuple:
+    """``python -m lakesoul_tpu_torch.scanplane service`` with
+    SCANPLANE_WORKERS workers on ``spool`` (its log to ``log``); returns the
+    process, its first line (``{"location", "spool"}``) and the seconds it
+    took to print it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    svc = subprocess.Popen(
+        [sys.executable, "-m", "lakesoul_tpu_torch.scanplane", "service", "--warehouse", wh,
+         "--workers", str(SCANPLANE_WORKERS), "--spool", spool],
+        env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+    first = []
+    reader = threading.Thread(target=lambda: first.append(svc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(SCANPLANE_START_S)
+    start_s = time.perf_counter() - t0
+    if not first or not first[0].strip():
+        stop_scanplane_service(svc)
+        require(False, f"the scan-plane service printed no first line in {start_s:.1f} s")
+    return svc, json.loads(first[0]), start_s
+
+
+def stop_scanplane_service(svc) -> list:
+    """SIGINT (the service stops its workers and waits for them: SIGTERM
+    would end it at once and orphan them), then SIGKILL past
+    SCANPLANE_STOP_S; the pids of its workers still alive afterwards, each
+    then killed."""
+    children = proc_children(svc.pid)
+    svc.send_signal(signal.SIGINT)
+    try:
+        svc.wait(SCANPLANE_STOP_S)
+    except subprocess.TimeoutExpired:
+        svc.kill()
+        svc.wait(SCANPLANE_STOP_S)
+    alive = [pid for pid in children if proc_alive(pid)]
+    for pid in alive:
+        os.kill(pid, signal.SIGKILL)
+    return alive
+
+
+def worker_stage_labels() -> list:
+    """The ``worker=`` labels of this process's ``lakesoul_scan_stage_seconds``
+    series: the scan-plane workers whose stages were merged here."""
+    from lakesoul_tpu_torch.obs import registry
+    from lakesoul_tpu_torch.obs.stages import STAGE_FAMILY
+
+    return sorted({m.group(1) for key in registry().snapshot() if key.startswith(STAGE_FAMILY)
+                   for m in [re.search(r'worker="([^"]+)"', key)] if m})
+
+
+def phase_scanplane(torch, M, L, t, count: int, local_rows_per_s: float, fleet_oracle: list,
+                    kind: str) -> dict:
+    """The scan plane on the loader's table: ``python -m
+    lakesoul_tpu_torch.scanplane service --workers 2`` as a child process,
+    its spool on ``/dev/shm`` when there is room.  ``t.scan().via_scanplane(
+    location).to_torch_iter(batch_size=524,288, ...)`` feeds the loader's
+    MLP step on the card for a cold epoch (the workers decode while the
+    trainer reads) and a warm one (the spooled session), each delivering
+    ``count_rows()`` rows; a third remote epoch's card batches, copied back,
+    must equal the local ``to_torch_iter``'s by sha256, and so must a fourth
+    with ``LAKESOUL_FLEET_TRANSPORT=stream``; the shm rung must have been
+    negotiated and both workers' stage series merged here.  Then the
+    ``fleet_train --location`` leg: two ranks of ``fleet train`` read
+    through the gateway, each = the shard oracle.  The service is stopped
+    by SIGINT; a worker still alive afterwards fails the run."""
+    from lakesoul_tpu_torch.obs import registry
+    from lakesoul_tpu_torch.obs.stages import stage_seconds
+
+    def shm_negotiated():
+        return registry().counter("lakesoul_fleet_transport_negotiated_total",
+                                  transport="shm").value
+
+    wh = t.catalog.warehouse
+    base, medium = spool_base(count * SPOOL_ROW_BYTES)
+    spool = tempfile.mkdtemp(prefix="chip_smoke_spool_", dir=base)
+    log_path = spool + ".log"
+    shm_before = shm_negotiated()
+    feed_kw = {"transform": loader_transform, "io_threads": LOADER_IO_THREADS}
+    with open(log_path, "w") as log:
+        svc, handle, start_s = start_scanplane_service(wh, spool, log)
+        try:
+            loc = handle["location"]
+            model = M.MLP(LOADER_FEATURES, hidden=LOADER_HIDDEN, seed=SEED, device=DEVICE)
+            step = M.make_mlp_train_step(model, M.adam(model.parameters(), LOADER_LR),
+                                         device=DEVICE)
+
+            def remote(**kw):
+                return t.scan().batch_size(LOADER_BATCH).via_scanplane(loc).to_torch_iter(
+                    drop_remainder=False, device=DEVICE, **kw)
+
+            epochs = []
+            for name in ("cold", "warm"):
+                before = stage_seconds()
+                rows, loss = 0, None
+                t0 = time.perf_counter()
+                for b in remote(**feed_kw):
+                    loss = step(b["x"].t(), b["y"])
+                    rows += int(b["y"].shape[0])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = stage_seconds()
+                require(rows == count, f"the scan plane's {name} epoch delivered {rows} rows, "
+                                       f"not {count}")
+                require(bool(torch.isfinite(loss)), f"a non-finite loss in the {name} epoch")
+                stages = {k: after[k] - before[k] for k in after}
+                epochs.append({"epoch": name, "rows": rows, "wall_s": wall,
+                               "rows_per_s": rows / wall, "loss_last": float(loss),
+                               "queue_share": stages["queue"] / wall, "stage_seconds": stages})
+            it = iter(remote(**feed_kw))
+
+            def feed():
+                for _ in range(LOADER_PROFILE_BATCHES):
+                    b = next(it)
+                    step(b["x"].t(), b["y"])
+
+            busy = profile(torch, feed)
+            it.close()
+            del it
+            to_host = lambda v: v.cpu().numpy()  # noqa: E731
+            card = batches_sha(remote(), to_host)
+            local = batches_sha(t.scan().batch_size(LOADER_BATCH).to_torch_iter(
+                drop_remainder=False, device=DEVICE), to_host)
+            os.environ["LAKESOUL_FLEET_TRANSPORT"] = "stream"
+            try:
+                stream = batches_sha(remote(), to_host)
+            finally:
+                del os.environ["LAKESOUL_FLEET_TRANSPORT"]
+            shm_ranges = shm_negotiated() - shm_before
+            workers = worker_stage_labels()
+            spool_bytes = dir_bytes(spool)
+            lines, fleet_wall = run_fleet_ranks(wh, extra=("--location", loc))
+        finally:
+            alive = stop_scanplane_service(svc)
+            shutil.rmtree(spool, ignore_errors=True)
+            with open(log_path) as f:
+                log_tail = f.read()[-3000:]
+            os.unlink(log_path)
+    fleet = {"config": f"{FLEET_RANKS} fleet train processes on one card through the "
+                       f"scan-plane gateway, batch {LOADER_BATCH}, --device-put --location",
+             "device_kind": kind, "ranks": [{**ln, "rows_per_s": ln["rows"] / ln["elapsed_s"]}
+                                            for ln in lines],
+             "oracle": fleet_oracle, "wall_s": fleet_wall, "count_rows": count}
+    emit("fleet_train_location", **fleet)
+    check_fleet_lines(lines, fleet_oracle, count, "fleet train --location")
+    cold, warm = epochs
+    rec = {"config": f"python -m lakesoul_tpu_torch.scanplane service, {SCANPLANE_WORKERS} "
+                     "workers, on the loader's 20M-row table, via_scanplane().to_torch_iter("
+                     f"batch {LOADER_BATCH}) into MLP(16, hidden=256)", "device_kind": kind,
+           "spool_medium": medium, "service_start_s": start_s,
+           "cold_rows_per_s": cold["rows_per_s"], "warm_rows_per_s": warm["rows_per_s"],
+           "local_loader_rows_per_s": local_rows_per_s,
+           "warm_over_local": warm["rows_per_s"] / local_rows_per_s,
+           "device_busy_share": busy["device_busy_share"], "busy_batches": LOADER_PROFILE_BATCHES,
+           "queue_share_cold": cold["queue_share"], "queue_share_warm": warm["queue_share"],
+           "epochs": epochs, "spool_bytes": spool_bytes,
+           "spool_bytes_per_row": spool_bytes / count, "batches_sha": card[0],
+           "local_sha": local[0], "stream_sha": stream[0], "rows_hashed": card[1],
+           "shm_negotiated": shm_ranges, "worker_stage_labels": workers,
+           "workers_alive_after_stop": alive}
+    emit("scanplane", **rec)
+    require(not alive, f"scan-plane workers {alive} outlived the service's stop; its log: "
+                       f"{log_tail}")
+    require(card == local and card[1] == count,
+            f"the scan plane's card batches {card} != the local iterator's {local}")
+    require(stream == local, f"the forced stream transport's batches {stream} != {local}")
+    require(shm_ranges > 0, "the shm transport was never negotiated")
+    require(len(workers) >= SCANPLANE_WORKERS,
+            f"stage series merged from workers {workers}, not from {SCANPLANE_WORKERS}")
     return rec
 
 
@@ -3308,8 +3774,9 @@ def phase_loader(torch, M, L, kind: str) -> dict:
             del loader  # stops the persistent workers
             baseline[f"workers_{workers}"] = runs
         base_best = max(r["rows_per_s"] for runs in baseline.values() for r in runs)
-        phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
+        fleet = phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
         phase_sql(torch, M, L, t, kind)
+        phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"], kind)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3345,6 +3812,8 @@ def main(argv: list) -> int:
     process of its own."""
     if argv[:1] == ["--plane-table"]:
         return plane_table_build(argv[1])
+    if argv[:1] == ["--gateway-clients"]:
+        return gateway_clients(argv[1])
 
     started = time.perf_counter()
     import torch
@@ -3432,7 +3901,9 @@ def main(argv: list) -> int:
                "packed_dot": sl["packed_dot_timing"],
                "ragged_score": {**planes[4]["ragged_timing"],
                                 "one_bit_plane": planes[1]["ragged_timing"]}}
-    paths = [sl, ex, *planes.values(), vt]
+    gateways = [p["gateway"] for p in (*planes.values(), vt) if p.get("gateway")]
+    require(len(gateways) == 2, "a gateway phase did not run")
+    paths = [sl, ex, *planes.values(), vt, *gateways]
     record = []
     for name, (source, replaces, library_call) in KERNELS.items():
         t = timings[name]

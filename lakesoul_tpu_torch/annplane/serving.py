@@ -14,6 +14,7 @@ keys as the single-index endpoint."""
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -76,3 +77,14 @@ class ShardedAnnEndpoint(AnnEndpoint):
             [self.params.nprobe if e is None else int(e) for e in extras], np.int64
         )
         return self.plane.batch_search(np.stack(queries), self.params, nprobes=nprobes)
+
+
+@dataclass(frozen=True)
+class AnnPlaneBinding:
+    """A served plane's registration with the Flight gateway: requests pass
+    the gateway's JWT auth, then RBAC-check against the TABLE the plane
+    indexes — the plane inherits exactly the table's access story."""
+
+    endpoint: ShardedAnnEndpoint
+    namespace: str
+    table: str

@@ -9,9 +9,10 @@ the reference's ``to_torch`` dataset adapter.
 
 The port's copy of ``lakesoul_tpu/catalog.py``.  The table vector index
 (``build_vector_index``, ``vector_search``, ``scan().vector_search``) runs on
-the card unless ``device="cpu"`` is passed.  Layers that are not ported yet
-raise :class:`ConfigError` where the reference imports them lazily:
-``via_scanplane`` and ``follow``.
+the card unless ``device="cpu"`` is passed.  ``via_scanplane`` sources a
+scan's batches from a scan-plane gateway.  The freshness layer is not ported
+yet: ``follow`` raises :class:`ConfigError` where the reference imports it
+lazily.
 """
 
 from __future__ import annotations
@@ -786,9 +787,22 @@ class LakeSoulScan:
         return self._replace(_cache=True)
 
     def via_scanplane(self, target, **client_kwargs) -> "LakeSoulScan":
-        """Source this scan's batches from a scan-plane gateway: the scan
-        plane is not ported yet."""
-        raise ConfigError("via_scanplane (the scan plane) is not ported yet")
+        """Source this scan's batches from a scan-plane gateway instead of
+        decoding in-process: ``target`` is a gateway location
+        (``grpc://host:port``) or an existing
+        :class:`~lakesoul_tpu_torch.scanplane.client.ScanPlaneClient`.
+        Chainable like every builder method; every consumer downstream —
+        ``to_batches`` / ``to_arrow`` / ``to_torch_iter`` / ``to_torch`` —
+        then streams from the fleet with byte-identical results (the copy to
+        the card, collate and loader stats stay client-side)."""
+        from lakesoul_tpu_torch.scanplane.client import ScanPlaneClient
+
+        client = (
+            target
+            if isinstance(target, ScanPlaneClient)
+            else ScanPlaneClient(target, **client_kwargs)
+        )
+        return self._replace(_batch_source_factory=client.source)
 
     def _cache_key(self) -> tuple:
         info = self._table.info

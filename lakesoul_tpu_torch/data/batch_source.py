@@ -12,9 +12,10 @@ source FACTORY (set by :meth:`LakeSoulScan.via_scanplane`), and
 with ``to_batches``-identical semantics (limit applied, deterministic
 order, generators close cleanly on abandonment).  Local scans resolve to
 :class:`ScanBatchSource` (a thin ``to_batches`` wrapper).  The remote
-source (the scan plane) and the continuous one (``follow=``, the freshness
-follower) are not ported yet: a ``follow`` raises :class:`ConfigError`, and
-``via_scanplane`` raises before a factory can be set.
+scans (``scan.via_scanplane(...)``) resolve to
+:class:`lakesoul_tpu_torch.scanplane.client.RemoteBatchSource`.  The
+continuous source (``follow=``, the freshness follower) is not ported yet: a
+``follow`` raises :class:`ConfigError`.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def batch_source_for(scan, follow=None):
     """Resolve a scan to its batch source.
 
     ``follow`` (a continuous source over the table's commit log) is not
-    ported yet and raises.  Otherwise the remote factory wins, then
-    in-process decode."""
+    ported yet and raises.  Otherwise the remote factory
+    (``via_scanplane``) wins, then in-process decode."""
     if follow is not None and follow is not False:
         from lakesoul_tpu_torch.errors import ConfigError
 

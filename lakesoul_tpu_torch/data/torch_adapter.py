@@ -2,8 +2,8 @@
 
 Batches come through the batch-source seam
 (:mod:`lakesoul_tpu_torch.data.batch_source`), so a scan bound to a scan-plane
-fleet would stream remotely with the same iterator contract (the scan
-plane is not ported yet)."""
+fleet (``scan.via_scanplane(...)``) streams remotely with the same iterator
+contract."""
 
 from __future__ import annotations
 

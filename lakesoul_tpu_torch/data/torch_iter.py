@@ -774,6 +774,9 @@ class TorchBatchIterator:
             tensor_shapes=self._tensor_shapes,
         )
         h = self._h_rebatch
+        # the batch-source seam: in-process decode or a scan-plane fleet
+        # (scan.via_scanplane) — everything downstream (rebatch, collate,
+        # prefetch, the copy to the card, stats) is identical either way
         from lakesoul_tpu_torch.data.batch_source import batch_source_for
 
         for arrow_batch in batch_source_for(self._scan).iter_batches(

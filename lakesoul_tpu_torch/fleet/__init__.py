@@ -1,8 +1,11 @@
 """Fleet plane of the port: the process axis a multi-process run shards a
 scan by (:mod:`multihost`, a copy of ``lakesoul_tpu/fleet/multihost.py``
 that asks ``torch.distributed`` where the reference asks jax) and the
-``train`` role of ``python -m lakesoul_tpu_torch.fleet``.  The reference's
-transports and autoscaler are not ported yet."""
+``train`` role of ``python -m lakesoul_tpu_torch.fleet`` (in-process, or
+through a scan-plane gateway with ``--location``), and the transport seam a
+scan-plane exchange delivers spool segments over (:mod:`transport`: shm,
+object-store spill, Flight stream).  The reference's autoscaler is not
+ported yet."""
 
 from __future__ import annotations
 

@@ -9,10 +9,10 @@ the port of ``lakesoul_tpu/fleet/__main__.py``.
   batches, sha256, ...}`` hashed over the collated batches' bytes, the
   per-rank identity oracle compared against single-process shard scans.
   ``--device-put`` is accepted, as the reference's command line has it:
-  the card is already the default.
+  the card is already the default.  ``--location`` reads the shard through
+  a scan-plane gateway instead of decoding in-process.
 - ``autoscale``: the leased scanplane worker controller.  It needs the
-  scan plane and the autoscaler, which the port has not yet: it raises
-  ``ConfigError``.  So does ``train --location`` (a scanplane gateway).
+  autoscaler, which the port has not yet: it raises ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from lakesoul_tpu_torch.errors import ConfigError
 
 
 def _cmd_autoscale(args) -> int:
-    raise ConfigError("the autoscale role (fleet/autoscale.py, the scan plane) is not ported yet")
+    raise ConfigError("the autoscale role (fleet/autoscale.py) is not ported yet")
 
 
 def _cmd_train(args) -> int:
@@ -43,7 +43,7 @@ def _cmd_train(args) -> int:
     catalog = LakeSoulCatalog(args.warehouse, db_path=args.db_path)
     scan = catalog.scan(args.table, args.namespace).batch_size(args.batch_size)
     if args.location:
-        scan = scan.via_scanplane(args.location)  # raises: not ported yet
+        scan = scan.via_scanplane(args.location)
     local_devices = torch.cuda.device_count()
     digest = hashlib.sha256()
     rows = 0
@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     pt.add_argument("--namespace", default="default")
     pt.add_argument("--batch-size", type=int, default=8192)
     pt.add_argument("--location", default=None,
-                    help="scanplane gateway (not ported yet); omit to decode in-process")
+                    help="scanplane gateway location; omit to decode in-process")
     pt.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: batches on the card (raises without one); cpu: host arrays")
     pt.add_argument("--device-put", action="store_true",

@@ -1,12 +1,16 @@
 """Atomic publication of one file (the subset of
 ``lakesoul_tpu/runtime/atomicio.py`` that the checkpointer, the index and
-plane manifests and the fleet spool use).
+plane manifests, the fleet spool, the scan plane's spool and its spill rung
+use).
 
 Protocol on a local filesystem: write ``<path>.tmp-<pid>-<random>`` in the
 same directory, flush, fsync, then rename it onto ``path`` (atomic on
-POSIX).  A crash leaves the old file or the new one, never a torn one; an
-overwritten pointer (``LATEST``, ``PLANE``) is always readable.  An object
-store gets one direct PUT, which its own contract makes atomic
+POSIX).  A
+crash leaves the old file or the new one, never a torn one; an overwritten
+pointer (``LATEST``, ``PLANE``) is always readable.  Two-phase publication
+(:func:`stage_stream` → :meth:`StagedFile.commit`) serves protocols whose
+barrier is a later rename (the spool's segment after its sidecar).  An
+object store gets one direct PUT, which its own contract makes atomic
 (:func:`publish_bytes_fs`).
 """
 
@@ -15,6 +19,33 @@ from __future__ import annotations
 import os
 import uuid
 from pathlib import Path
+
+
+class StagedFile:
+    """A written-and-fsynced tmp file awaiting its commit rename."""
+
+    def __init__(self, path: str, tmp: str):
+        self.path = path
+        self.tmp = tmp
+        self.nbytes = os.path.getsize(tmp)
+
+    def commit(self) -> None:
+        os.replace(self.tmp, self.path)
+
+
+def stage_stream(path: str, write_fn, *, holder: str) -> StagedFile:
+    """Stage a streaming producer: ``write_fn(f)`` writes to the open tmp
+    sink ``<path>.tmp-<holder>`` (e.g. an Arrow IPC writer), then the tmp is
+    flushed and fsynced.  Nothing is visible until
+    :meth:`StagedFile.commit`.  The holder's lease serializes producers, so
+    one tmp name per holder is unique, and a dead holder's debris is
+    sweepable by name."""
+    tmp = f"{path}.tmp-{holder}"
+    with open(tmp, "wb") as f:
+        write_fn(f)
+        f.flush()
+        os.fsync(f.fileno())
+    return StagedFile(path, tmp)
 
 
 def _is_local(fs) -> bool:

@@ -1,0 +1,187 @@
+"""``python -m lakesoul_tpu_torch.scanplane`` — the scan-plane process entries
+(the port's copy of ``lakesoul_tpu/scanplane/__main__.py``).
+
+Three roles, one module (what is tested is what deploys):
+
+- ``service`` (default): Flight gateway serving ``scan_stream`` exchanges
+  from a spool, plus N spawned worker child processes.  First stdout line
+  is the JSON handle ``{"location": ..., "spool": ...}``.
+- ``worker``: one leased decode worker against a spool (the service
+  spawns these; operators can run extras by hand — any
+  number of workers share one spool + store).
+- ``drive``: a verification client — stream one table shard through a
+  gateway and print ``{rows, batches, sha256, elapsed_s}`` (a per-client
+  child process, and an ops smoke test).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import logging
+import time
+
+
+def _add_store_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--warehouse", required=True)
+    p.add_argument("--db-path", default=None)
+
+
+def _cmd_service(args) -> int:
+    from lakesoul_tpu_torch.obs import fleet
+    from lakesoul_tpu_torch.scanplane.service import ScanPlaneService
+
+    fleet.arm("scanplane-service")
+
+    svc = ScanPlaneService(
+        args.warehouse,
+        db_path=args.db_path,
+        location=args.location,
+        spool_dir=args.spool,
+        workers=args.workers,
+        lease_ttl_s=args.lease_ttl_s,
+        poll_s=args.poll_s,
+        jwt_secret=args.jwt_secret,
+    )
+    try:
+        svc.serve()
+    except KeyboardInterrupt:
+        svc.stop()
+    return 0
+
+
+def _cmd_worker(args) -> int:
+    from lakesoul_tpu_torch import LakeSoulCatalog
+    from lakesoul_tpu_torch.obs import fleet
+    from lakesoul_tpu_torch.scanplane.worker import ScanPlaneWorker
+
+    catalog = LakeSoulCatalog(args.warehouse, db_path=args.db_path)
+    worker = ScanPlaneWorker(
+        catalog,
+        args.spool,
+        worker_id=args.worker_id,
+        lease_ttl_s=args.lease_ttl_s,
+        poll_interval_s=args.poll_s,
+    )
+    fleet.arm("scanplane-worker", service_id=worker.worker_id)
+    if args.once:
+        print(json.dumps(worker.poll_once()), flush=True)
+        return 0
+    print(
+        f"scanplane worker {worker.worker_id} polling {args.spool}"
+        f" every {worker.poll_interval_s}s (lease ttl {worker.lease_ttl_s}s)",
+        flush=True,
+    )
+    try:
+        worker.run_forever()
+    except KeyboardInterrupt:
+        worker.stop()
+    return 0
+
+
+def _cmd_drive(args) -> int:
+    from lakesoul_tpu_torch.obs import fleet
+    from lakesoul_tpu_torch.obs.tracing import span
+    from lakesoul_tpu_torch.scanplane.client import ScanPlaneClient
+
+    fleet.arm("scanplane-drive")
+    client = ScanPlaneClient(
+        args.location,
+        token=args.token,
+        shm={"auto": "auto", "on": True, "off": False}[args.shm],
+    )
+    request = {
+        "table": args.table,
+        "namespace": args.namespace,
+        "batch_size": args.batch_size,
+    }
+    digest = hashlib.sha256()
+    rows = 0
+    batches = 0
+    # wall-clock start/end stamps ride the output so a parent process can
+    # compute fleet-aggregate throughput across client processes (the
+    # clocks are one host's)
+    started_unix = time.time()
+    start = time.perf_counter()
+    # a root span here joins the spawning parent's trace via
+    # LAKESOUL_TRACE_ID (ambient), so the fleet spool sees the DELIVERY
+    # leg of the commit → decode → delivery path from this process
+    with span("scanplane.drive.deliver", table=args.table, rank=args.rank):
+        for batch in client.iter_batches(
+            request, rank=args.rank, world=args.world
+        ):
+            # hash the batch CONTENT in a layout-independent way: IPC bytes
+            # of a freshly-serialized batch are deterministic for equal
+            # contents
+            import pyarrow as pa
+
+            sink = pa.BufferOutputStream()
+            with pa.ipc.new_stream(sink, batch.schema) as w:
+                w.write_batch(batch)
+            digest.update(sink.getvalue().to_pybytes())
+            rows += batch.num_rows
+            batches += 1
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "rows": rows,
+        "batches": batches,
+        "sha256": digest.hexdigest(),
+        "elapsed_s": round(elapsed, 4),
+        "started_unix": started_unix,
+        "ended_unix": time.time(),
+    }), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        "lakesoul-scanplane",
+        description="disaggregated scan plane over a lakesoul_tpu_torch warehouse",
+    )
+    sub = p.add_subparsers(dest="role")
+
+    ps = sub.add_parser("service", help="gateway + worker fleet (default role)")
+    _add_store_args(ps)
+    ps.add_argument("--location", default="grpc://127.0.0.1:0")
+    ps.add_argument("--spool", default=None,
+                    help="spool dir (default LAKESOUL_SCANPLANE_SPOOL or a"
+                         " fresh tmpfs dir)")
+    ps.add_argument("--workers", type=int, default=None,
+                    help="worker child processes (default"
+                         " LAKESOUL_SCANPLANE_WORKERS or 2; 0 = serve only)")
+    ps.add_argument("--lease-ttl-s", type=float, default=None)
+    ps.add_argument("--poll-s", type=float, default=None)
+    ps.add_argument("--jwt-secret", default=None)
+    ps.set_defaults(fn=_cmd_service)
+
+    pw = sub.add_parser("worker", help="one leased decode worker")
+    _add_store_args(pw)
+    pw.add_argument("--spool", required=True)
+    pw.add_argument("--worker-id", default=None)
+    pw.add_argument("--lease-ttl-s", type=float, default=None)
+    pw.add_argument("--poll-s", type=float, default=None)
+    pw.add_argument("--once", action="store_true",
+                    help="one poll cycle, print outcome counts, exit")
+    pw.set_defaults(fn=_cmd_worker)
+
+    pd = sub.add_parser("drive", help="verification client (rows + sha256)")
+    pd.add_argument("--location", required=True)
+    pd.add_argument("--table", required=True)
+    pd.add_argument("--namespace", default="default")
+    pd.add_argument("--batch-size", type=int, default=8192)
+    pd.add_argument("--rank", type=int, default=None)
+    pd.add_argument("--world", type=int, default=None)
+    pd.add_argument("--token", default=None)
+    pd.add_argument("--shm", choices=("auto", "on", "off"), default="auto")
+    pd.set_defaults(fn=_cmd_drive)
+
+    args = p.parse_args(argv)
+    if args.role is None:
+        p.error("choose a role: service | worker | drive")
+    logging.basicConfig(level=logging.INFO)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,315 @@
+"""Scan-plane sessions: a pinned scan plan, split into leaseable ranges (the
+port's copy of ``lakesoul_tpu/scanplane/session.py``).
+
+A *session* is the unit of coordination between delivery heads, workers,
+and clients: one scan request (table + projection/filter/partitions +
+batch size) against one table state (the partition-version digest), whose
+plan is computed ONCE and split into *ranges* — one per scan unit, in plan
+order.  Everything downstream is deterministic from the manifest:
+
+- a worker decoding range *k* produces exactly the batches the
+  single-process scan would produce for unit *k* (same reader, same batch
+  size), so spool segments are byte-identical no matter WHICH worker
+  produces them — double-production by a zombie whose lease was fenced is
+  wasted work, never wrong data;
+- a client at rank *r* of *w* consumes ranges ``k % w == r`` in order,
+  which is exactly ``scan.shard(r, w).to_batches()`` — the byte-identity
+  contract the scan plane keeps.
+
+The manifest is JSON in the spool directory, written atomically
+(tmp + ``os.replace``); the session id hashes the canonical request plus
+the version digest, so concurrent clients of the same scan SHARE one
+session (ranges decode once per fleet, not once per client) while any
+commit to the table starts a fresh one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import time
+from dataclasses import dataclass, field
+
+from lakesoul_tpu_torch.errors import ConfigError
+from lakesoul_tpu_torch.meta.client import ScanPlanPartition
+from lakesoul_tpu_torch.runtime import atomicio
+
+MANIFEST_NAME = "manifest.json"
+
+# spool sessions older than this are pruned by workers/services on startup
+# and between polls — a crashed fleet must not leak spool space forever
+ENV_SESSION_TTL_S = "LAKESOUL_SCANPLANE_SESSION_TTL_S"
+
+# the request keys a session pins; anything else in a scan (limit, cache,
+# checkpoints) stays client-side
+REQUEST_KEYS = (
+    "namespace", "table", "columns", "filter", "partitions", "batch_size",
+    "keep_cdc_deletes",
+)
+
+
+def session_request_from_scan(scan) -> dict:
+    """The wire/session request for a :class:`LakeSoulScan` — the subset of
+    scan state the plane serves remotely.  Scan features that cannot ride a
+    shared session (snapshot/incremental reads, vector search, scan cache)
+    fail loudly instead of silently serving different rows."""
+    if scan._snapshot_ts is not None or scan._incremental is not None:
+        raise ConfigError(
+            "scanplane sessions serve the latest table state; snapshot/"
+            "incremental scans must run locally"
+        )
+    if scan._vector_search is not None:
+        raise ConfigError("vector_search scans cannot ride a scanplane session")
+    if scan._cache:
+        raise ConfigError("scan.cache() is a local materialization; drop it"
+                          " for scanplane delivery")
+    info = scan._table.info
+    return {
+        "namespace": info.table_namespace,
+        "table": info.table_name,
+        "columns": list(scan._columns) if scan._columns is not None else None,
+        "filter": scan._filter._to_dict() if scan._filter is not None else None,
+        "partitions": dict(scan._partitions) or None,
+        "batch_size": scan._batch_size,
+        "keep_cdc_deletes": scan._keep_cdc_deletes,
+    }
+
+
+def canonical_request(request: dict) -> dict:
+    """Normalize a wire request to the session-keyed subset (unknown keys
+    dropped, defaults filled) so equivalent requests hash identically."""
+    return {
+        "namespace": request.get("namespace") or "default",
+        "table": request["table"],
+        "columns": request.get("columns") or None,
+        "filter": request.get("filter") or None,
+        "partitions": request.get("partitions") or None,
+        "batch_size": int(request.get("batch_size") or 8192),
+        "keep_cdc_deletes": bool(request.get("keep_cdc_deletes")),
+    }
+
+
+def scan_for_request(catalog, request: dict):
+    """Rebuild the LakeSoulScan a request describes (server/worker side)."""
+    from lakesoul_tpu_torch.io.filters import Filter
+
+    req = canonical_request(request)
+    scan = catalog.table(req["table"], req["namespace"]).scan()
+    if req["columns"]:
+        scan = scan.select(req["columns"])
+    if req["filter"]:
+        scan = scan.filter(Filter._from_dict(req["filter"]))
+    if req["partitions"]:
+        scan = scan.partitions(req["partitions"])
+    if req["keep_cdc_deletes"]:
+        scan = scan.with_cdc_deletes()
+    return scan.batch_size(req["batch_size"])
+
+
+def projected_schema(scan):
+    """The Arrow schema the scan's batches carry — delegates to the scan's
+    own definition so spool segments, the gateway's stream schema, and
+    local delivery can never drift."""
+    return scan.projected_schema()
+
+
+def iter_range_batches(scan, unit):
+    """THE range-production call, shared by the worker's spool writer and
+    the gateway's inline mode: byte-identity between the two (and the
+    local scan) rests on every site invoking the reader identically."""
+    from lakesoul_tpu_torch.io.reader import iter_scan_unit_batches
+
+    return iter_scan_unit_batches(
+        unit.data_files,
+        unit.primary_keys,
+        batch_size=scan._batch_size,
+        memory_budget_bytes=scan._table.io_config().memory_budget_bytes,
+        file_sizes=unit.file_sizes,
+        **scan._unit_kwargs(unit),
+    )
+
+
+def _version_digest(scan) -> str:
+    info = scan._table.info
+    heads = scan._table.catalog.client.store.get_all_latest_partition_info(
+        info.table_id
+    )
+    payload = sorted((h.partition_desc, h.version) for h in heads)
+    return hashlib.md5(
+        json.dumps([info.table_id, payload]).encode()
+    ).hexdigest()
+
+
+@dataclass
+class ScanSession:
+    """One published session: id, pinned request, and the range plan."""
+
+    session_id: str
+    request: dict
+    version_digest: str
+    ranges: list[ScanPlanPartition] = field(default_factory=list)
+    created_ms: int = 0
+
+    # ------------------------------------------------------------ creation
+    @classmethod
+    def locate(cls, catalog, request: dict) -> tuple[dict, str, str]:
+        """(canonical request, version digest, session id) WITHOUT planning
+        — one partition-head query, so a delivery head can check for an
+        already-published manifest before paying for a full scan plan."""
+        req = canonical_request(request)
+        scan = scan_for_request(catalog, req)
+        digest = _version_digest(scan)
+        sid = hashlib.md5(
+            (json.dumps(req, sort_keys=True) + digest).encode()
+        ).hexdigest()[:20]
+        return req, digest, sid
+
+    @classmethod
+    def plan(cls, catalog, request: dict) -> "ScanSession":
+        """Compute the session for a request against the CURRENT table
+        state: plan units (partition-filtered, bucket-pruned, never rank
+        sharded — ranks shard at delivery) become the ranges.
+
+        The digest and the plan are two store reads; a commit landing
+        between them would mint a manifest whose id pins one table state
+        and whose ranges reflect another — so the digest is re-checked
+        after planning and the pair retried until it is stable (a racing
+        writer burst surfaces as a typed transient, never a torn plan)."""
+        from lakesoul_tpu_torch.errors import TransientError
+        from lakesoul_tpu_torch.meta.entity import now_millis
+
+        for _ in range(5):
+            req, digest, sid = cls.locate(catalog, request)
+            ranges = list(scan_for_request(catalog, req).scan_plan())
+            _, digest_after, _ = cls.locate(catalog, request)
+            if digest_after == digest:
+                return cls(
+                    session_id=sid,
+                    request=req,
+                    version_digest=digest,
+                    ranges=ranges,
+                    created_ms=now_millis(),
+                )
+        raise TransientError(
+            "table kept committing while the scanplane session was being"
+            " planned; retry when the writer burst settles"
+        )
+
+    # ---------------------------------------------------------- manifests
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "session": self.session_id,
+                "created_ms": self.created_ms,
+                "request": self.request,
+                "version_digest": self.version_digest,
+                "ranges": [dataclasses.asdict(u) for u in self.ranges],
+            },
+            sort_keys=True,
+        )
+
+    @classmethod
+    def from_json(cls, raw: str) -> "ScanSession":
+        d = json.loads(raw)
+        return cls(
+            session_id=d["session"],
+            request=d["request"],
+            version_digest=d["version_digest"],
+            ranges=[ScanPlanPartition(**u) for u in d["ranges"]],
+            created_ms=d.get("created_ms", 0),
+        )
+
+    def dir(self, spool_dir: str) -> str:
+        return os.path.join(spool_dir, self.session_id)
+
+    def publish(self, spool_dir: str) -> str:
+        """Write the manifest atomically; idempotent — racing publishers
+        (concurrent client exchanges resolving the same session) write
+        identical bytes, so last-rename wins harmlessly.  Returns the
+        session directory."""
+        sdir = self.dir(spool_dir)
+        os.makedirs(sdir, exist_ok=True)
+        path = os.path.join(sdir, MANIFEST_NAME)
+        if not os.path.exists(path):
+            # atomicio's anonymous tmp name is pid+uuid unique: concurrent
+            # threads of one process must not rename each other's tmp out
+            # from underneath
+            atomicio.publish_bytes(path, self.to_json().encode())
+        return sdir
+
+    @classmethod
+    def load(cls, spool_dir: str, session_id: str) -> "ScanSession | None":
+        path = os.path.join(spool_dir, session_id, MANIFEST_NAME)
+        try:
+            with open(path) as f:
+                return cls.from_json(f.read())
+        except FileNotFoundError:
+            return None
+
+    # ------------------------------------------------------------- shards
+    def client_ranges(self, rank: int | None, world: int | None) -> list[int]:
+        """The global range indices rank ``r`` of ``w`` consumes, in order
+        (``i % w == r`` — the ``LakeSoulScan.shard`` assignment)."""
+        n = len(self.ranges)
+        if rank is None or world is None:
+            return list(range(n))
+        if not 0 <= rank < world:
+            raise ConfigError(f"invalid shard rank={rank} world={world}")
+        return [i for i in range(n) if i % world == rank]
+
+
+def list_sessions(spool_dir: str) -> list[str]:
+    """Session ids with a published manifest, oldest-manifest first — the
+    order workers drain them in."""
+    try:
+        names = os.listdir(spool_dir)
+    except FileNotFoundError:
+        return []
+    out = []
+    for name in names:
+        path = os.path.join(spool_dir, name, MANIFEST_NAME)
+        try:
+            out.append((os.path.getmtime(path), name))
+        except OSError:
+            continue
+    return [name for _, name in sorted(out)]
+
+
+def touch_session(spool_dir: str, session_id: str) -> None:
+    """Freshen a session's manifest mtime — the delivery head calls this
+    per exchange so an actively-consumed session (even one whose ranges
+    were all produced long ago) never ages into the prune window."""
+    try:
+        os.utime(os.path.join(spool_dir, session_id, MANIFEST_NAME))
+    except OSError:
+        pass
+
+
+def prune_sessions(spool_dir: str, *, ttl_s: float | None = None) -> int:
+    """Delete session directories idle for longer than the TTL (idle
+    fleets must not leak spool space).  Idleness = the NEWEST mtime in the
+    directory — fresh segments (producing workers) and fresh manifest
+    touches (serving exchanges) both keep a live session out of the
+    window.  Best-effort: a concurrent reader keeps its already-mapped
+    segments alive via the mapping even if the names vanish."""
+    import shutil
+
+    if ttl_s is None:
+        ttl_s = float(os.environ.get(ENV_SESSION_TTL_S, "3600"))
+    now = time.time()  # file mtimes are wall-clock; comparing like with like
+    pruned = 0
+    for name in list_sessions(spool_dir):
+        sdir = os.path.join(spool_dir, name)
+        try:
+            newest = max(
+                os.path.getmtime(os.path.join(sdir, f))
+                for f in os.listdir(sdir)
+            )
+        except (OSError, ValueError):
+            continue
+        if now - newest > ttl_s:
+            shutil.rmtree(sdir, ignore_errors=True)
+            pruned += 1
+    return pruned

@@ -154,7 +154,6 @@ def test_digest_of_a_tensor_batch_is_the_numpy_batchs():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["train", "--table", "t", "--location", "grpc://localhost:1"], "via_scanplane"),
     (["autoscale", "--spool", "/nonexistent"], "autoscale"),
     (["autoscale", "--spool", "/nonexistent", "--min-workers", "2", "--lease-ttl-s", "5"],
      "autoscale"),

@@ -7,7 +7,9 @@ unimportable while every port module is imported, a tiny index is built
 and searched on the CPU, and so is a tiny two-shard ANN plane, the MLP,
 ResNet and BERT each take one tiny train step, a tiny primary-key table is
 created, written, upserted and read through ``to_torch_iter`` (a streamed
-epoch, then a replayed one with ``cache="device"``), a tiny vector
+epoch, then a replayed one with ``cache="device"``, then through a Flight
+gateway's scan plane, which also answers an ``ann_search`` over the tiny
+plane), a tiny vector
 table is indexed (``build_vector_index``) and searched (``vector_search``,
 ``scan().vector_search``), and a gloo process group of one rank takes a
 tiny BERT plan step (``parallel/``, ``make_mesh``), saves and restores it
@@ -16,7 +18,8 @@ query, a string filter, the kernel register on the CPU and a fleet
 publisher read by its aggregator through the exporter run too; every
 ``parallel`` module, ``annplane/collective``, ``entry`` and every module
 added with the SQL layer and the fleet plane are among the modules
-imported.  It has to be a subprocess: ``tests/conftest.py``
+imported, as is every module of the scan plane, the gateway, the transport
+seam and the checkpointed writer.  It has to be a subprocess: ``tests/conftest.py``
 imports jax into every test process.
 """
 
@@ -74,6 +77,7 @@ _CHILD = textwrap.dedent(
 
     sys.meta_path.insert(0, Block())
 
+    import json
     import numpy as np
     import torch
     import lakesoul_tpu_torch
@@ -171,7 +175,11 @@ _CHILD = textwrap.dedent(
     dist.destroy_process_group()
     for name in ("sql.parser", "sql.executor", "sql.tpch", "obs.fleet", "obs.exporter",
                  "obs.logging", "freshness.slo", "utils.memory", "tensorplane.smoke",
-                 "fleet.__main__", "models.checkpoint", "data.hf_adapter"):
+                 "fleet.__main__", "models.checkpoint", "data.hf_adapter", "scanplane",
+                 "scanplane.session", "scanplane.spool", "scanplane.worker",
+                 "scanplane.delivery", "scanplane.client", "scanplane.service",
+                 "scanplane.__main__", "service.flight", "service.jwt", "service.rbac",
+                 "service.assets", "fleet.transport", "streaming.cdc", "runtime.lease"):
         assert f"lakesoul_tpu_torch.{name}" in mods, name
     from lakesoul_tpu_torch.sql import SqlSession
     out = SqlSession(cat, device="cpu").execute("SELECT count(*) AS n FROM t WHERE id < 10")
@@ -186,6 +194,27 @@ _CHILD = textwrap.dedent(
     srv = serve_prometheus(FleetAggregator(spool), port=0, host="127.0.0.1")
     srv.shutdown()
     assert len(FleetAggregator(spool).members()) == 1
+    import threading
+    from lakesoul_tpu_torch.annplane import AnnPlaneBinding, ShardedAnnEndpoint
+    from lakesoul_tpu_torch.scanplane import ScanPlaneDelivery, ScanPlaneWorker
+    from lakesoul_tpu_torch.service import LakeSoulFlightClient, LakeSoulFlightServer
+    spool_dir = tempfile.mkdtemp()
+    with ShardedAnnEndpoint(plane, SearchParams(top_k=1, nprobe=8, rerank_depth=200)) as ep:
+        srv = LakeSoulFlightServer(cat, scanplane=ScanPlaneDelivery(cat, spool_dir), device="cpu",
+                                   ann_planes={"p": AnnPlaneBinding(ep, "default", "t")})
+        threading.Thread(target=srv.serve, daemon=True).start()
+        loc = f"grpc://127.0.0.1:{srv.port}"
+        stop = threading.Event()
+        threading.Thread(target=ScanPlaneWorker(cat, spool_dir, poll_interval_s=0.02).run_forever,
+                         kwargs={"stop_event": stop}, daemon=True).start()
+        remote = [b for b in tbl.scan().batch_size(16).via_scanplane(loc).to_torch_iter(
+            device="cpu", drop_remainder=False)]
+        assert sum(len(b["id"]) for b in remote) == 50, remote
+        hit = json.loads(LakeSoulFlightClient(loc).action(
+            "ann_search", {"plane": "p", "query": x[250].tolist()})[0])
+        assert hit["ids"] == [250], hit
+        stop.set()
+        srv.shutdown()
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

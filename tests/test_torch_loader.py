@@ -204,9 +204,16 @@ def test_options_the_port_does_not_take_raise(tmp_path, kw):
 
 
 def test_via_scanplane_raises(tmp_path):
+    """``via_scanplane`` is ported: what it refuses is what the reference
+    refuses — an unknown forced transport at once, and a scan no shared
+    session can serve (a snapshot read) when it is consumed, before any
+    connection is made."""
     _, port = _scans(_write(tmp_path, "plain"))
-    with pytest.raises(ConfigError, match="not ported yet"):
-        port.via_scanplane("grpc://localhost:1")
+    with pytest.raises(ConfigError, match="unknown fleet transport"):
+        port.via_scanplane("grpc://localhost:1", transport="pigeon")
+    remote = port.snapshot_at(1).via_scanplane("grpc://localhost:1")
+    with pytest.raises(ConfigError, match="snapshot/incremental scans must run locally"):
+        remote.to_arrow()
 
 
 def test_to_torch_iter_with_no_card_raises(tmp_path):

@@ -27,7 +27,6 @@ LINT_FINDINGS = {
     ("raw-process", "lakesoul_tpu_torch/_build.py"): 1,
     ("raw-process", "lakesoul_tpu_torch/native/__init__.py"): 1,
     ("raw-process", "lakesoul_tpu_torch/parallel/launch.py"): 1,
-    ("undocumented-env", "lakesoul_tpu_torch/native/__init__.py"): 1,
     ("transitive-lock-held-call", "lakesoul_tpu_torch/native/__init__.py"): 1,
     ("raw-thread", "lakesoul_tpu_torch/vector/serving.py"): 1,
     ("raw-thread", "lakesoul_tpu_torch/obs/exporter.py"): 1,  # as the reference's baseline
