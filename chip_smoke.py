@@ -14,9 +14,12 @@ saved and restored sharded, and every sharded train step under one NCCL
 rank, then the table →
 train-step loader on a 20M-row table beside a stock DataLoader and its device
 replay cache, the fleet train role and the SQL layer on that table, then
-the scan plane (a gateway and two worker processes) feeding the same step
-and the fleet train role through it, and fails if any phase fails.
-Each phase prints one JSON line with its own timing:
+the scan plane (a gateway and two worker processes, then a fleet the
+autoscaler owns) feeding the same step and the fleet train role through it,
+that table compacted by the leased compactor, then the always-fresh loop
+(CDC writer, leased compactors, the follower on the card), and fails if
+any phase fails.  Each phase prints one JSON line carrying its wall
+``seconds`` (see ``emit``):
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — builds every kernel from ``lakesoul_tpu_torch/csrc/`` with one
@@ -251,6 +254,36 @@ Each phase prints one JSON line with its own timing:
 11e. fleet_train_location — inside 11d: the two ``fleet train`` ranks of
              11b with ``--location`` (reading through the gateway), each =
              the shard oracle of 11b, rows summing to ``count_rows()``.
+11f. autoscale — inside 11d, on a fresh spool: ``python -m
+             lakesoul_tpu_torch.scanplane service --workers 0`` serves and
+             ``python -m lakesoul_tpu_torch.fleet autoscale --min-workers 2
+             --max-workers 4`` owns the workers; a cold ``via_scanplane``
+             epoch of raw batches into the MLP step (features stacked on the
+             card), one worker SIGKILLed once rows flow: a ``worker_exit``
+             line and a ``spawn`` after it, the epoch's card batches = the
+             local loader's by sha256, no process alive after the
+             autoscaler's SIGINT; cold rows/s beside 11d's.
+11g. compaction — the loader's table through ``python -m
+             lakesoul_tpu_torch.compaction --once --min-file-num 2``: the
+             head one CompactionCommit that added every live file, each
+             bucket in at most ceil(rows / max_file_rows) + 1 files (the
+             writer's roll), none merging on read, ``CALL clean`` through ``SqlSession``
+             returning the cleaner's columns, then a raw epoch into the
+             step = 11d's pre-compaction epoch by sha256; compaction
+             seconds and the loader's rows/s after it beside before it.
+12. freshness — the always-fresh loop (``benchmarks/micro.py``'s three
+             roles) on its own warehouse under ``.scratch/``: ``python -m
+             lakesoul_tpu_torch.freshness writer`` (24 commits of 65,536
+             CDC upserts, 0.5 s apart, 4 buckets), a victim ``python -m
+             lakesoul_tpu_torch.compaction`` hung in its leased job and
+             SIGKILLed, a peer taking over, and ``to_torch_iter(follow=...)``
+             on the card under flaky poll and object-store faults (p 0.3),
+             its ``follow_state_json()`` taken halfway and resumed by a
+             second iterator: rows (copied back) = the writer's oracle by
+             sha256, a ``fence=<n >= 2>`` CompactionCommit, the freshness SLO
+             (p99 <= ``LAKESOUL_FRESHNESS_SLO_S``) in budget, the throughput
+             floor held, no child alive after; p50 / p99 / max seconds,
+             rows/s, compaction commits, kill-to-fenced-commit seconds.
 
 Each ANN path's kernel launch counts (and each gateway phase's) are set to 0
 just before it is driven and read just after; every kernel must have run on
@@ -360,6 +393,15 @@ FLEET_RANKS, FLEET_TIMEOUT_S = 2, 300
 # f0..f15 float32, label int32) and the share of /dev/shm's free bytes kept
 SCANPLANE_WORKERS, SCANPLANE_START_S, SCANPLANE_STOP_S = 2, 120, 30
 SPOOL_ROW_BYTES, SPOOL_SPARE = 76, 1.25
+# the always-fresh loop (benchmarks/micro.py:1010-1190 at this scale): the
+# writer role's commits, rows a commit, keyspace (commits 9-24 upsert the
+# first eight's keys) and buckets; the follower's batch; the compactors'
+# lease TTL; the faults' probability; and the deadline of every wait
+FRESH_COMMITS, FRESH_ROWS, FRESH_KEYSPACE, FRESH_BUCKETS = 24, 65_536, 524_288, 4
+FRESH_INTERVAL_S, FRESH_BATCH, FRESH_TTL_S, FRESH_FAULT_P = 0.5, 65_536, 2.0, 0.3
+FRESH_DEADLINE_S, FRESH_TPUT_FLOOR = 180.0, 100.0  # micro.py's throughput floor, rows/s
+# the compaction run on the loader's table, and the autoscaled fleet's bounds
+COMPACT_TIMEOUT_S, AUTOSCALE_MIN, AUTOSCALE_MAX, AUTOSCALE_WAIT_S = 600, 2, 4, 60.0
 SQL_FILTER = "f0 > 0.5 AND label = 1"
 SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
                 "ORDER BY label")
@@ -416,7 +458,32 @@ def device_kind(torch) -> str:
     return "cpu" if DEVICE == "cpu" else torch.cuda.get_device_name(0)
 
 
+_PHASE_STARTS: list = []  # perf_counter at each running phase function's entry
+
+
+def timed_phase(fn):
+    """Marks ``fn``'s entry, so that each line it emits carries its wall
+    ``seconds`` (see :func:`emit`)."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _PHASE_STARTS.append(time.perf_counter())
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PHASE_STARTS.pop()
+
+    return run
+
+
 def emit(phase: str, **fields) -> None:
+    """One JSON line for ``phase``.  Every line carries ``seconds``: the
+    phase's own when it states one, else the wall seconds since the
+    innermost running :func:`timed_phase` function was entered (the whole phase for
+    its closing line, the part so far for a line it emits on the way)."""
+    if "seconds" not in fields and _PHASE_STARTS:
+        fields["seconds"] = time.perf_counter() - _PHASE_STARTS[-1]
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -723,6 +790,7 @@ def single_query_timing(torch, K, codes, q, tables, d: int) -> dict:
     return rec
 
 
+@timed_phase
 def phase_kernels(torch, K, R) -> dict:
     """Each kernel against its plain version; timings at the serving shapes."""
     t0 = time.perf_counter()
@@ -893,6 +961,7 @@ def phase_kernels(torch, K, R) -> dict:
     return {"errs": errs, "timings": rec}
 
 
+@timed_phase
 def phase_register(kind: str) -> dict:
     """The port's kernel register (``tensorplane/smoke.py``) on the card:
     each of the reference's five Pallas kernels' cases launches the port's
@@ -1027,6 +1096,7 @@ def cluster_scans(torch, K, index, queries, nprobe: int) -> list:
     return out
 
 
+@timed_phase
 def phase_slice(torch, K, R) -> dict:
     from lakesoul_tpu_torch.vector import IvfRabitqIndex, SearchParams, VectorIndexConfig
     from lakesoul_tpu_torch.vector.oracle import recall_at_k
@@ -1227,6 +1297,7 @@ def serve_slice(index, params, qs_np) -> tuple[dict, list, float, dict]:
     return served, errors, serve_s, stats
 
 
+@timed_phase
 def phase_ex_slice(torch, K, R) -> dict:
     """The slice's data through a 4-bit ex-code index: no kernel of the
     port lies on its search path (the reference computes it outside any
@@ -1464,6 +1535,7 @@ def same_answer(ans: dict, ids, dists) -> bool:
                                np.asarray(dists, np.float32)))
 
 
+@timed_phase
 def phase_gateway_ann(torch, K, R, L, plane, params, qs_np, served: dict, endpoint: dict,
                       wh: str, kind: str) -> dict:
     """The 4-bit plane served over Flight: an in-process
@@ -1688,6 +1760,7 @@ def table_plane_hold(torch, L, x, qs_np, cfg, params, workdir: str) -> dict:
             "card_equals_cpu_host_path": f"{held}/{N_PLANE_HOLD}"}
 
 
+@timed_phase
 def phase_repro(torch, x) -> dict:
     """``kmeans`` twice from one seed on one plane shard's rows: the
     centroids and assignments must be bitwise equal."""
@@ -1708,6 +1781,7 @@ def phase_repro(torch, x) -> dict:
     return {"kmeans_s": secs}
 
 
+@timed_phase
 def phase_plane(torch, K, R, x, queries, bits: int, top=None) -> dict:
     """One plane at ``bits`` over the corpus ``x``.  ``top``: the oracle's
     exact top-10 rows of the first N_ORACLE queries, from an earlier plane
@@ -2086,6 +2160,7 @@ def bert_flops(cfg, tokens: int, seq: int) -> float:
                      + 6.0 * cfg.vocab_size * h)
 
 
+@timed_phase
 def phase_mlp(torch, M, L, kind: str) -> dict:
     """BASELINE config 1 (Titanic) as the example runs it: the 2,000
     synthetic rows written to a hash-partitioned primary-key table and
@@ -2154,6 +2229,7 @@ def phase_mlp(torch, M, L, kind: str) -> dict:
     return rec
 
 
+@timed_phase
 def phase_resnet50(torch, M, C, kind: str) -> dict:
     """BASELINE config 2: ``ResNet(ResNetConfig())`` (depth 50, width 64,
     1000 classes, bf16), SGD 0.05, one fixed batch of 256 seeded normal
@@ -2217,6 +2293,7 @@ def bert_batch(torch, gen, n: int, vocab: int, dev):
     return ids.to(dev), labels.to(dev), mask.to(dev)
 
 
+@timed_phase
 def phase_bert_base(torch, M, C, kind: str) -> dict:
     """BASELINE config 3: ``BertConfig.base()`` (30,522 × 768, 12 layers, 12
     heads, ff 3072, bf16) through ``make_bert_train_state`` (AdamW 1e-4,
@@ -2298,6 +2375,7 @@ def moe_routing(torch, MB, model, ids, mask) -> dict:
             "expert_load_by_layer": [(c.float() / n).tolist() for c in loads]}
 
 
+@timed_phase
 def phase_moe_bert_base(torch, M, C, kind: str) -> dict:
     """Switch-Base-8 (Fedus et al. 2021): BERT-base's widths (T5-Base's)
     with every FFN a top-1 MoE of 8 experts, capacity factor 1.25, aux
@@ -2356,6 +2434,7 @@ def phase_moe_bert_base(torch, M, C, kind: str) -> dict:
     return rec, (model, opt, (ids, labels, mask))
 
 
+@timed_phase
 def phase_checkpoint(torch, M, state, kind: str, root: str) -> dict:
     """Switch-Base-8 after ``moe_bert_base``'s timed steps, put under a
     world-size-1 NCCL ``plan=`` state (``make_bert_train_state(plan=)``,
@@ -2453,6 +2532,7 @@ def phase_checkpoint(torch, M, state, kind: str, root: str) -> dict:
     return rec
 
 
+@timed_phase
 def phase_parallel(torch, M, C, kind: str) -> dict:
     """The parallel layer on the card: one NCCL process group of world size
     1 (a ``file://`` store in a temporary directory), ``make_mesh()`` over it,
@@ -2632,6 +2712,7 @@ def reset_peaks(torch) -> None:
         torch.cuda.reset_peak_host_memory_stats()
 
 
+@timed_phase
 def phase_resnet50_table(torch, M, L, kind: str, fixed_images_per_s: float) -> dict:
     """BASELINE config 2 fed from a table, as ``examples/resnet_from_table.py``
     builds it at ImageNet's shapes: ``image_id`` int64 primary key,
@@ -2729,6 +2810,7 @@ def phase_resnet50_table(torch, M, L, kind: str, fixed_images_per_s: float) -> d
     return rec
 
 
+@timed_phase
 def phase_bert_base_table(torch, M, L, kind: str, fixed: dict) -> dict:
     """BASELINE config 3 fed from a C4-style token table, as
     ``examples/bert_mlm_from_table.py`` builds it at BERT-base's widths:
@@ -2800,6 +2882,7 @@ def phase_bert_base_table(torch, M, L, kind: str, fixed: dict) -> dict:
     return rec
 
 
+@timed_phase
 def phase_vector_table(torch, K, R, L, kind: str) -> dict:
     """The slice's corpus as a table (1,000,000 × 512, ``id`` int64 primary
     key, ``hash_bucket_num=4``, LSF, written in VT_CHUNK-row commits, so
@@ -2904,6 +2987,7 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
     return {"launches": launches, "gateway": gateway}
 
 
+@timed_phase
 def phase_gateway_vector(K, R, t, qs_np, direct: list, direct_lat: list, kind: str) -> dict:
     """The table index served over Flight: an in-process
     ``LakeSoulFlightServer`` (a JWT secret, ``device=None``: the card) on the
@@ -3071,14 +3155,19 @@ def dir_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
 
 
+def hash_batch(h, b, to_host) -> None:
+    """Fold one batch's columns into ``h``: name, then bytes, in name order."""
+    for name in sorted(b):
+        h.update(name.encode())
+        h.update(to_host(b[name]).tobytes())
+
+
 def batches_sha(batches, to_host, rows_of=lambda b: b["id"].shape[0]) -> tuple[str, int]:
-    """sha256 over every batch's columns (name, then bytes, in name order)
-    and the rows seen."""
+    """sha256 over every batch's columns (:func:`hash_batch`) and the rows
+    seen."""
     h, rows = hashlib.sha256(), 0
     for b in batches:
-        for name in sorted(b):
-            h.update(name.encode())
-            h.update(to_host(b[name]).tobytes())
+        hash_batch(h, b, to_host)
         rows += int(rows_of(b))
     return h.hexdigest(), rows
 
@@ -3281,13 +3370,11 @@ def run_fleet_ranks(wh: str, extra=(), env_extra=None) -> tuple[list, float]:
     """``python -m lakesoul_tpu_torch.fleet train --device-put`` as
     FLEET_RANKS processes on the one card; their JSON lines and the wall
     seconds.  A rank still running at FLEET_TIMEOUT_S is killed."""
-    here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     procs = []
     for rank in range(FLEET_RANKS):
-        env = dict(os.environ, LAKESOUL_FLEET_PROCESS_INDEX=str(rank),
-                   LAKESOUL_FLEET_PROCESS_COUNT=str(FLEET_RANKS), **(env_extra or {}),
-                   PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+        env = child_env(LAKESOUL_FLEET_PROCESS_INDEX=str(rank),
+                        LAKESOUL_FLEET_PROCESS_COUNT=str(FLEET_RANKS), **(env_extra or {}))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "lakesoul_tpu_torch.fleet", "train", "--warehouse", wh,
              "--table", "bench", "--batch-size", str(LOADER_BATCH), "--device-put", *extra],
@@ -3319,6 +3406,7 @@ def check_fleet_lines(lines: list, oracle: list, count: int, what: str) -> None:
             f"{what}: the ranks' rows {[ln['rows'] for ln in lines]} do not sum to {count}")
 
 
+@timed_phase
 def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
     """``python -m lakesoul_tpu_torch.fleet train --device-put`` as two
     processes on the one card (``LAKESOUL_FLEET_PROCESS_INDEX`` / ``_COUNT``
@@ -3361,6 +3449,7 @@ def phase_fleet_train(torch, L, wh: str, count: int, kind: str) -> dict:
     return rec
 
 
+@timed_phase
 def phase_sql(torch, M, L, t, kind: str) -> dict:
     """The SQL layer on the loader's table, with pandas unimportable:
     ``scan.filter(SQL_FILTER)`` feeds ``to_torch_iter`` into the loader's
@@ -3455,18 +3544,35 @@ def spool_base(need_bytes: int) -> tuple[str, str]:
     return base, "disk .scratch/"
 
 
-def start_scanplane_service(wh: str, spool: str, log) -> tuple:
-    """``python -m lakesoul_tpu_torch.scanplane service`` with
-    SCANPLANE_WORKERS workers on ``spool`` (its log to ``log``); returns the
-    process, its first line (``{"location", "spool"}``) and the seconds it
-    took to print it."""
+def child_env(**extra) -> dict:
+    """This process's environment with the checkout on ``PYTHONPATH``, for
+    the port's entry points run as children."""
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]),
+                **extra)
+
+
+def stop_child(proc, timeout_s: float = SCANPLANE_STOP_S) -> None:
+    """SIGINT (the port's entry points stop what they own on it), SIGKILL
+    past ``timeout_s``."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout_s)
+
+
+def start_scanplane_service(wh: str, spool: str, log, workers: int = SCANPLANE_WORKERS) -> tuple:
+    """``python -m lakesoul_tpu_torch.scanplane service`` with ``workers``
+    workers on ``spool`` (its log to ``log``); returns the process, its first
+    line (``{"location", "spool"}``) and the seconds it took to print it."""
     t0 = time.perf_counter()
     svc = subprocess.Popen(
         [sys.executable, "-m", "lakesoul_tpu_torch.scanplane", "service", "--warehouse", wh,
-         "--workers", str(SCANPLANE_WORKERS), "--spool", spool],
-        env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+         "--workers", str(workers), "--spool", spool],
+        env=child_env(), stdout=subprocess.PIPE, stderr=log, text=True)
     first = []
     reader = threading.Thread(target=lambda: first.append(svc.stdout.readline()), daemon=True)
     reader.start()
@@ -3484,12 +3590,7 @@ def stop_scanplane_service(svc) -> list:
     SCANPLANE_STOP_S; the pids of its workers still alive afterwards, each
     then killed."""
     children = proc_children(svc.pid)
-    svc.send_signal(signal.SIGINT)
-    try:
-        svc.wait(SCANPLANE_STOP_S)
-    except subprocess.TimeoutExpired:
-        svc.kill()
-        svc.wait(SCANPLANE_STOP_S)
+    stop_child(svc)
     alive = [pid for pid in children if proc_alive(pid)]
     for pid in alive:
         os.kill(pid, signal.SIGKILL)
@@ -3506,6 +3607,127 @@ def worker_stage_labels() -> list:
                    for m in [re.search(r'worker="([^"]+)"', key)] if m})
 
 
+def card_step_batch(torch, b) -> tuple:
+    """The loader's step inputs built on the card from a raw batch: the
+    feature columns stacked to ``[B, F]`` and the labels."""
+    return torch.stack([b[f"f{i}"] for i in range(LOADER_FEATURES)], dim=1), b["label"]
+
+
+def wait_until(pred, timeout_s: float, poll_s: float = 0.05) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(poll_s)
+    return bool(pred())
+
+
+@timed_phase
+def phase_autoscale(torch, M, t, count: int, local: tuple, fixed_cold_rows_per_s: float,
+                  kind: str) -> dict:
+    """The scan plane's fleet sized by the autoscaler, on a fresh spool:
+    ``python -m lakesoul_tpu_torch.scanplane service --workers 0`` serves
+    only, and ``python -m lakesoul_tpu_torch.fleet autoscale --min-workers
+    2 --max-workers 4`` owns the workers.  A cold ``via_scanplane`` epoch of
+    raw batches feeds the loader's MLP step on the card (the features
+    stacked there); once rows flow one worker, its pid from a ``spawn``
+    line, is SIGKILLed (``tests/test_fleet_chaos.py:108-200``).  Requires a
+    ``worker_exit`` line for it and a ``spawn`` after, the epoch's card
+    batches (copied back) = the local scan's by sha256, and no worker alive
+    after the autoscaler's SIGINT (its children listed first)."""
+    wh = t.catalog.warehouse
+    base, medium = spool_base(count * SPOOL_ROW_BYTES)
+    spool = tempfile.mkdtemp(prefix="chip_smoke_autoscale_", dir=base)
+    log_path = spool + ".log"
+    events: list = []
+    spawned = lambda: [e["pid"] for e in list(events) if e.get("event") == "spawn"]  # noqa: E731
+    children, victim, alive = [], None, []
+    with open(log_path, "w") as log:
+        svc, handle, start_s = start_scanplane_service(wh, spool, log, workers=0)
+        scaler = None
+        try:
+            t0 = time.perf_counter()
+            scaler = subprocess.Popen(
+                [sys.executable, "-m", "lakesoul_tpu_torch.fleet", "autoscale",
+                 "--warehouse", wh, "--spool", spool, "--min-workers", str(AUTOSCALE_MIN),
+                 "--max-workers", str(AUTOSCALE_MAX), "--poll-s", "0.2",
+                 "--worker-lease-ttl-s", str(FRESH_TTL_S), "--worker-poll-s", "0.05"],
+                env=child_env(), stdout=subprocess.PIPE, stderr=log, text=True)
+
+            def pump():  # the autoscaler's JSON event lines, stamped on arrival
+                for line in scaler.stdout:
+                    try:
+                        events.append({**json.loads(line), "at": time.perf_counter()})
+                    except ValueError:
+                        continue
+
+            threading.Thread(target=pump, daemon=True).start()
+            require(wait_until(lambda: len(spawned()) >= AUTOSCALE_MIN, AUTOSCALE_WAIT_S),
+                    f"the autoscaler spawned {spawned()} in {AUTOSCALE_WAIT_S} s: {events[-5:]}")
+            min_s = time.perf_counter() - t0
+            model = M.MLP(LOADER_FEATURES, hidden=LOADER_HIDDEN, seed=SEED, device=DEVICE)
+            step = M.make_mlp_train_step(model, M.adam(model.parameters(), LOADER_LR),
+                                         device=DEVICE)
+            to_host = lambda v: v.cpu().numpy()  # noqa: E731
+            h, rows, loss = hashlib.sha256(), 0, None
+            t0 = time.perf_counter()
+            for b in t.scan().batch_size(LOADER_BATCH).via_scanplane(
+                    handle["location"]).to_torch_iter(drop_remainder=False, device=DEVICE):
+                hash_batch(h, b, to_host)
+                rows += int(b["id"].shape[0])
+                loss = step(*card_step_batch(torch, b))
+                if victim is None:  # rows flow: kill one autoscaled worker
+                    victim = spawned()[0]
+                    os.kill(victim, signal.SIGKILL)
+                    killed_at = time.perf_counter()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+
+            def backfill():
+                snap = list(events)
+                exits = [i for i, e in enumerate(snap)
+                         if e.get("event") == "worker_exit" and e.get("pid") == victim]
+                return next((e for e in snap[exits[0] + 1:] if e.get("event") == "spawn"),
+                            None) if exits else None
+
+            require(wait_until(lambda: backfill() is not None, AUTOSCALE_WAIT_S),
+                    f"no worker_exit for {victim} and spawn after it: {events[-8:]}")
+            backfill_s = backfill()["at"] - killed_at
+            children = proc_children(scaler.pid)
+        finally:
+            t0 = time.perf_counter()
+            if scaler is not None:
+                children = sorted(set(children) | set(proc_children(scaler.pid)))
+                stop_child(scaler)
+                alive = [pid for pid in sorted(set(children) | set(spawned())) if proc_alive(pid)]
+                for pid in alive:
+                    os.kill(pid, signal.SIGKILL)
+            alive += stop_scanplane_service(svc)
+            stop_s = time.perf_counter() - t0
+            shutil.rmtree(spool, ignore_errors=True)
+            with open(log_path) as f:
+                log_tail = f.read()[-3000:]
+            os.unlink(log_path)
+    sha = (h.hexdigest(), rows)
+    rec = {"config": f"python -m lakesoul_tpu_torch.fleet autoscale --min-workers "
+                     f"{AUTOSCALE_MIN} --max-workers {AUTOSCALE_MAX} behind a --workers 0 "
+                     "service on the loader's table; raw batches into MLP(16, hidden=256)",
+           "device_kind": kind, "spool_medium": medium, "service_start_s": start_s,
+           "min_fleet_s": min_s, "cold_rows_per_s": rows / wall, "cold_wall_s": wall,
+           "fixed_two_worker_cold_rows_per_s": fixed_cold_rows_per_s,
+           "loss_last": float(loss), "spawns": len(spawned()), "victim": victim,
+           "backfill_s": backfill_s, "stop_s": stop_s,
+           "events": collections.Counter(e.get("event") for e in events),
+           "batches_sha": sha[0], "local_sha": local[0], "rows": rows,
+           "workers_alive_after_stop": alive}
+    emit("autoscale", **rec)
+    require(not alive, f"processes {alive} outlived the autoscaled fleet; its log: {log_tail}")
+    require(sha == local, f"the autoscaled fleet's card batches {sha} != the local scan's {local}")
+    require(bool(torch.isfinite(loss)), "a non-finite loss in the autoscaled epoch")
+    return rec
+
+
+@timed_phase
 def phase_scanplane(torch, M, L, t, count: int, local_rows_per_s: float, fleet_oracle: list,
                     kind: str) -> dict:
     """The scan plane on the loader's table: ``python -m
@@ -3624,9 +3846,135 @@ def phase_scanplane(torch, M, L, t, count: int, local_rows_per_s: float, fleet_o
     require(shm_ranges > 0, "the shm transport was never negotiated")
     require(len(workers) >= SCANPLANE_WORKERS,
             f"stage series merged from workers {workers}, not from {SCANPLANE_WORKERS}")
+    rec["autoscale"] = phase_autoscale(torch, M, t, count, local, cold["rows_per_s"], kind)
     return rec
 
 
+def compacted_buckets(t, files_before: set, rows: int) -> list:
+    """Requires ``t`` (one partition, hash buckets) to have been compacted
+    whole: its head is one CompactionCommit, every file of every bucket was
+    added by that commit, no file from before it is live, the buckets hold
+    ``rows`` rows, and each bucket holds at most ceil(r / per_flush) + 1
+    files for its r rows.  That bound is the writer's: the compaction
+    writes the buckets one after another into one writer, which flushes
+    every bucket it buffers once ``max_file_rows`` rows (or its byte
+    budget) are buffered, so a bucket spans at most that many flushes.
+    Returns each bucket's files, rows (from the footers) and bound."""
+    from lakesoul_tpu_torch.io.formats import format_for
+    from lakesoul_tpu_torch.meta.entity import CommitOp
+
+    store = t.catalog.client.store
+    heads = store.get_all_latest_partition_info(t.info.table_id)
+    require(len(heads) == 1 and heads[0].commit_op == CommitOp.COMPACTION
+            and len(heads[0].snapshot) == 1,
+            f"the partition head is not one CompactionCommit: "
+            f"{[(h.commit_op, len(h.snapshot)) for h in heads]}")
+    (commit,) = store.get_data_commit_info(t.info.table_id, heads[0].partition_desc,
+                                           heads[0].snapshot)
+    added = {op.path for op in commit.file_ops if op.file_op.value == "add"}
+    cfg = t.io_config()
+    row_bytes = -(-sum(f.type.bit_width + 1 for f in t.schema) // 8)  # values + validity
+    per_flush = min(cfg.max_file_rows, cfg.memory_budget_bytes // row_bytes)
+    buckets = []
+    for u in t.scan().scan_plan():
+        r = sum(format_for(p).count_rows(p) for p in u.data_files)
+        buckets.append({"bucket": u.bucket_id, "files": len(u.data_files), "rows": r,
+                        "most_files": -(-r // per_flush) + 1, "paths": set(u.data_files)})
+    live = set().union(*(b.pop("paths") for b in buckets))
+    require(live == added and not live & files_before,
+            f"after compaction {len(live - added)} live files were not added by the "
+            f"CompactionCommit and {len(live & files_before)} are from before it")
+    require(sum(b["rows"] for b in buckets) == rows,
+            f"the compacted buckets hold {sum(b['rows'] for b in buckets)} rows, not {rows}")
+    require(all(b["files"] <= b["most_files"] for b in buckets),
+            f"a compacted bucket holds more files than its rows roll into "
+            f"(per flush {per_flush}): {buckets}")
+    return buckets
+
+
+@timed_phase
+def phase_compaction(torch, M, L, t, count: int, local: tuple, make_step, port_iter,
+                     streamed_rows_per_s: float, kind: str) -> dict:
+    """The loader's table compacted by the deployable leased compactor:
+    ``python -m lakesoul_tpu_torch.compaction --once --min-file-num 2`` as a
+    child with a deadline (8 buckets, each merging on read: the 5 % upsert
+    wave).  Requires every bucket to have been rewritten by the
+    compaction's one commit into no more files than its rows roll into
+    (:func:`compacted_buckets`) and to read without a merge after it,
+    ``CALL clean`` through the port's ``SqlSession`` to return
+    the reference cleaner's columns, and
+    then a raw epoch into the loader's MLP step on the card (the features
+    stacked there), copied back, = the same run's pre-compaction epoch
+    (``scanplane``'s local one) by sha256.  Reports the compaction's
+    seconds and the loader's rows/s after it (best of the loader's timed
+    epochs, same iterator and step) beside before it: what merge on read
+    costs the loader."""
+    from lakesoul_tpu_torch.sql import SqlSession
+
+    cat = t.catalog
+    files_before = {p for u in t.scan().scan_plan() for p in u.data_files}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lakesoul_tpu_torch.compaction", "--warehouse", cat.warehouse,
+         "--db-path", cat.client.store.db_path, "--once", "--min-file-num", "2",
+         "--service-id", "chip-smoke"],
+        env=child_env(), capture_output=True, text=True, timeout=COMPACT_TIMEOUT_S)
+    compact_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the compactor exited {proc.returncode}: {proc.stderr[-3000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    buckets = compacted_buckets(t, files_before, count)
+    plan = t.scan().scan_plan()
+    t0 = time.perf_counter()
+    cleaned = SqlSession(cat, device=DEVICE).execute("CALL clean()")
+    clean_s = time.perf_counter() - t0
+    to_host = lambda v: v.cpu().numpy()  # noqa: E731
+    step = make_step()
+    h, rows, loss = hashlib.sha256(), 0, None
+    for b in t.scan().batch_size(LOADER_BATCH).to_torch_iter(drop_remainder=False,
+                                                             device=DEVICE):
+        hash_batch(h, b, to_host)
+        rows += int(b["id"].shape[0])
+        loss = step(*card_step_batch(torch, b))
+    torch.cuda.synchronize()
+    sha = (h.hexdigest(), rows)
+    epochs = []
+    step = make_step()
+    for _ in range(LOADER_TIMED_EPOCHS):
+        n = 0
+        t0 = time.perf_counter()
+        for b in port_iter():
+            step(b["x"].t(), b["y"])
+            n += int(b["y"].shape[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(n == count, f"after compaction the loader delivered {n} rows, not {count}")
+        epochs.append({"rows": n, "wall_s": wall, "rows_per_s": n / wall})
+    after = max(e["rows_per_s"] for e in epochs)
+    rec = {"config": "python -m lakesoul_tpu_torch.compaction --once --min-file-num 2 on the "
+                     "loader's 20M-row table (8 buckets, one 5 % upsert wave), then CALL clean",
+           "device_kind": kind, "compact_s": compact_s, "outcome": counts,
+           "files_before": len(files_before), "buckets_after": buckets,
+           "buckets_merging_after": sum(bool(u.primary_keys) for u in plan),
+           "units_after": len(plan), "clean_s": clean_s, "clean": cleaned.to_pylist(),
+           "clean_columns": cleaned.column_names, "batches_sha": sha[0],
+           "pre_compaction_sha": local[0], "rows": rows, "loss_last": float(loss),
+           "loader_rows_per_s_before": streamed_rows_per_s, "loader_rows_per_s_after": after,
+           "after_over_before": after / streamed_rows_per_s, "epochs_after": epochs}
+    emit("compaction", **rec)
+    require(counts.get("compacted", 0) >= 1, f"the compactor compacted nothing: {counts}")
+    require(len(plan) == LOADER_BUCKETS and not any(u.primary_keys for u in plan),
+            f"after compaction {len(plan)} buckets, merging "
+            f"{[u.bucket_id for u in plan if u.primary_keys]}")
+    require(cleaned.column_names == ["versions_dropped", "files_deleted", "discarded_deleted",
+                                     "partitions_expired"] and cleaned.num_rows == 1,
+            f"CALL clean returned {cleaned.column_names}")
+    require(sha == local, f"after compaction and clean the card's batches {sha} != the "
+                          f"pre-compaction epoch's {local}")
+    require(bool(torch.isfinite(loss)), "a non-finite loss after compaction")
+    return rec
+
+
+@timed_phase
 def phase_loader(torch, M, L, kind: str) -> dict:
     """``bench.py``'s train leg on the card and its DataLoader comparator
     (see the module docstring, phase 11), then ``fleet_train`` and ``sql``
@@ -3776,7 +4124,11 @@ def phase_loader(torch, M, L, kind: str) -> dict:
         base_best = max(r["rows_per_s"] for runs in baseline.values() for r in runs)
         fleet = phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
         phase_sql(torch, M, L, t, kind)
-        phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"], kind)
+        plane = phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"],
+                                kind)
+        # the scan plane is the last phase to read the table as written
+        phase_compaction(torch, M, L, t, count, (plane["local_sha"], plane["rows_hashed"]),
+                         make_step, port_iter, best["rows_per_s"], kind)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3803,6 +4155,208 @@ def phase_loader(torch, M, L, kind: str) -> dict:
                replay["hbm_resident_replay_rows_per_s"],
            "replay_over_stream": replay["replay_over_stream"]}
     emit("loader", **rec)
+    return rec
+
+
+@timed_phase
+def phase_freshness(torch, L, kind: str) -> dict:
+    """The always-fresh loop (``benchmarks/micro.py:1010-1190``) with the
+    port's roles and the consumer on the card, on its own warehouse under
+    the git-ignored ``.scratch/``: ``python -m lakesoul_tpu_torch.freshness
+    writer`` streams FRESH_COMMITS checkpointed CDC upserts of FRESH_ROWS
+    rows (commits 9-24 re-write the first eight's keys); a victim ``python
+    -m lakesoul_tpu_torch.compaction`` hangs inside its leased job
+    (``LAKESOUL_FAULTS=compaction.leased_job:1:hang:300``) and is SIGKILLed
+    once the store shows its lease, a peer taking over; this process follows
+    the table with ``to_torch_iter(follow=...)`` on the card under flaky
+    poll and object-store faults (p 0.3), takes ``follow_state_json()``
+    halfway, stops, and resumes a second iterator from it.  A stream ends
+    through its ``stop_event`` once the follower has handed over every row
+    (``lakesoul_follow_rows_total``) and the iterator drains what is in
+    flight.  Requires both iterators' rows (copied back) to total the
+    writer's, with its oracle sha256; a ``fence=<n>`` CompactionCommit with
+    n >= 2 (the takeover); the freshness SLO (p99 <=
+    ``LAKESOUL_FRESHNESS_SLO_S``, 10 s by default) in budget and the
+    throughput floor held; and no child alive after the phase."""
+    import pyarrow as pa
+
+    from lakesoul_tpu_torch.freshness import SloMonitor, ThroughputSlo
+    from lakesoul_tpu_torch.freshness.__main__ import oracle_sha
+    from lakesoul_tpu_torch.meta.entity import CommitOp, now_millis
+    from lakesoul_tpu_torch.obs import registry
+    from lakesoul_tpu_torch.runtime import faults
+    from lakesoul_tpu_torch.runtime.resilience import RetryPolicy
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fresh_", dir=base)
+    wh, db = os.path.join(root, "wh"), os.path.join(root, "meta.db")
+    env = child_env(LAKESOUL_RETRY_SEED="7")
+    env.pop("LAKESOUL_FAULTS", None)
+    expected = FRESH_COMMITS * FRESH_ROWS
+    slo_target = float(os.environ.get("LAKESOUL_FRESHNESS_SLO_S", 10.0))
+    catalog = L.LakeSoulCatalog(wh, db_path=db)
+    schema = pa.schema([("id", pa.int64()), ("seq", pa.int64()), ("v", pa.float64())])
+    t = catalog.create_table("fresh", schema, primary_keys=["id"],
+                             hash_bucket_num=FRESH_BUCKETS, cdc=True)
+    store = catalog.client.store
+    lease_key = f"compaction/{t.info.table_id}/-5"
+    start_ts = now_millis() - 1
+    logs = open(os.path.join(root, "children.log"), "w")
+    procs: dict = {}
+
+    def compactor(service_id: str, fault: bool):
+        e = dict(env, LAKESOUL_FAULTS="compaction.leased_job:1:hang:300") if fault else env
+        return subprocess.Popen(
+            [sys.executable, "-m", "lakesoul_tpu_torch.compaction", "--warehouse", wh,
+             "--db-path", db, "--lease-ttl-s", str(FRESH_TTL_S), "--poll-s", "0.1",
+             "--version-gap", "3", "--service-id", service_id],
+            env=e, stdout=subprocess.DEVNULL, stderr=logs)
+
+    killed: dict = {}
+    closing = threading.Event()
+
+    def kill_and_replace():
+        deadline = time.monotonic() + FRESH_DEADLINE_S
+        while time.monotonic() < deadline and not closing.is_set():
+            lease = store.get_lease(lease_key)
+            if lease is not None and lease.holder == "victim":
+                procs["victim"].send_signal(signal.SIGKILL)
+                procs["victim"].wait(10.0)
+                killed["wall_ms"] = now_millis()
+                procs["peer"] = compactor("peer", False)
+                return
+            time.sleep(0.05)
+
+    slo = SloMonitor(target_s=slo_target, budget_fraction=0.05, slo="chip-smoke-freshness")
+    tput = ThroughputSlo(FRESH_TPUT_FLOOR, slo="chip-smoke-freshness-tput")
+    counter = registry().counter("lakesoul_follow_rows_total")
+    got = {"seq": [], "id": [], "v": []}
+    stops = [threading.Event(), threading.Event()]
+
+    def follow_iter(stop, **opts):
+        return t.scan().select(["id", "seq", "v"]).batch_size(FRESH_BATCH).to_torch_iter(
+            follow={"poll_interval": 0.05, "stop_event": stop, "slo": slo,
+                    "retry_policy": RetryPolicy(max_attempts=12, base_delay_s=0.002,
+                                                max_delay_s=0.05, seed=7), **opts},
+            device=DEVICE, drop_remainder=False)
+
+    def take(b) -> int:
+        for k in got:  # card batches copied back
+            got[k].append(b[k].cpu().numpy())
+        return int(b["seq"].shape[0])
+
+    def takeover_committed() -> bool:
+        # the peer's CompactionCommits, stamped with a token past the victim's
+        fenced[:] = [v for v in store.get_partition_versions(t.info.table_id, "-5")
+                     if v.commit_op == CommitOp.COMPACTION and v.expression.startswith("fence=")
+                     and int(v.expression.split("=", 1)[1]) >= 2]
+        return bool(fenced)
+
+    t_phase = time.perf_counter()
+    first, fenced, alive = 0, [], []
+    killer = threading.Thread(target=kill_and_replace, daemon=True)
+    try:
+        procs["victim"] = compactor("victim", True)
+        procs["writer"] = subprocess.Popen(
+            [sys.executable, "-m", "lakesoul_tpu_torch.freshness", "writer", "--warehouse", wh,
+             "--db-path", db, "--create", "--table", "fresh", "--commits", str(FRESH_COMMITS),
+             "--rows-per-commit", str(FRESH_ROWS), "--keyspace", str(FRESH_KEYSPACE),
+             "--hash-buckets", str(FRESH_BUCKETS), "--interval-s", str(FRESH_INTERVAL_S)],
+            env=env, stdout=subprocess.PIPE, stderr=logs, text=True)
+        killer.start()
+        # every wait of the phase has a deadline: past it the streams stop
+        # and the row check fails
+        watchdog = threading.Timer(FRESH_DEADLINE_S, lambda: [e.set() for e in stops])
+        watchdog.daemon = True
+        watchdog.start()
+        faults.clear()
+        for point in ("follow.poll", "object_store.cat_file", "object_store.open"):
+            faults.install(f"{point}:{FRESH_FAULT_P}:flaky")
+        tput.start()
+        t0 = time.perf_counter()
+        it = follow_iter(stops[0], start_timestamp_ms=start_ts)
+        saved = None
+        for b in it:
+            first += take(b)
+            if first >= expected // 2:
+                saved = it.follow_state_json()  # beside a model checkpoint
+                stops[0].set()
+                break
+        del it  # closes the first stream's pipeline
+        require(saved is not None, f"the first iterator ended at {first} rows")
+        resume_at = time.perf_counter() - t0
+        base_rows = counter.value
+        writer = procs["writer"]
+
+        def stop_when_delivered():
+            wait_until(lambda: writer.poll() is not None
+                       and counter.value - base_rows >= expected - first, FRESH_DEADLINE_S)
+            stops[1].set()
+
+        threading.Thread(target=stop_when_delivered, daemon=True).start()
+        second = sum(take(b) for b in follow_iter(stops[1], state=saved))
+        follow_s = time.perf_counter() - t0
+        tput.add_rows(first + second)
+        watchdog.cancel()
+        faults.clear()
+        out, _ = writer.communicate(timeout=FRESH_DEADLINE_S)
+        oracle = json.loads(out.strip().splitlines()[-1])
+        if killed:
+            wait_until(takeover_committed, FRESH_DEADLINE_S, 0.2)
+        compactions = [v for v in store.get_partition_versions(t.info.table_id, "-5")
+                       if v.commit_op == CommitOp.COMPACTION]
+    finally:
+        faults.clear()
+        for e in stops:
+            e.set()
+        closing.set()
+        if killer.is_alive():
+            killer.join(15.0)
+        for proc in list(procs.values()):
+            stop_child(proc)
+        logs.close()
+        alive = [p.pid for p in procs.values() if proc_alive(p.pid)]
+        for pid in alive:
+            os.kill(pid, signal.SIGKILL)
+        with open(os.path.join(root, "children.log")) as f:
+            log_tail = f.read()[-3000:]
+        shutil.rmtree(root, ignore_errors=True)
+    cols = {k: np.concatenate(v) if v else np.empty(0) for k, v in got.items()}
+    sha = oracle_sha(list(zip(cols["seq"].tolist(), cols["id"].tolist(), cols["v"].tolist())))
+    snap = slo.snapshot()
+    rate = tput.evaluate()
+    rec = {"config": f"freshness writer {FRESH_COMMITS} x {FRESH_ROWS} rows (keyspace "
+                     f"{FRESH_KEYSPACE}, {FRESH_BUCKETS} buckets, {FRESH_INTERVAL_S} s apart), "
+                     f"leased compactors (TTL {FRESH_TTL_S} s, victim SIGKILLed, peer), "
+                     f"to_torch_iter(follow=..., batch {FRESH_BATCH}) on the card, faults p "
+                     f"{FRESH_FAULT_P}", "device_kind": kind,
+           "rows": int(cols["seq"].size), "expected_rows": expected,
+           "rows_first_iterator": first, "resume_after_s": resume_at,
+           "oracle_rows": oracle["rows"], "sha256": sha, "oracle_sha256": oracle["sha256"],
+           "freshness_p50_s": snap["p50_s"], "freshness_p99_s": snap["p99_s"],
+           "freshness_max_s": snap["max_s"], "slo_target_s": slo_target,
+           "slo_in_budget": snap["in_budget"], "slo_violations": snap["violations"],
+           "commits_observed": snap["count"], "follow_s": follow_s,
+           "rows_per_s": int(cols["seq"].size) / follow_s,
+           "throughput": rate, "compaction_commits": len(compactions),
+           "fenced_commits": [v.expression for v in fenced],
+           "kill_to_fenced_commit_s": (min(v.timestamp for v in fenced) - killed["wall_ms"])
+           / 1000.0 if fenced and killed else None,
+           "victim_killed": bool(killed), "writer_rc": procs["writer"].returncode,
+           "children_alive_after": alive, "phase_s": time.perf_counter() - t_phase}
+    emit("freshness", **rec)
+    require(procs["writer"].returncode == 0, f"the writer exited {procs['writer'].returncode}: "
+                                             f"{log_tail}")
+    require(rec["rows"] == expected == oracle["rows"],
+            f"the follower delivered {rec['rows']} rows, the writer wrote {oracle['rows']}")
+    require(sha == oracle["sha256"], "the delivered rows differ from the writer's oracle")
+    require(bool(killed), "the victim compactor never held a lease")
+    require(bool(fenced), f"no fence=<n >= 2> CompactionCommit: {[v.expression for v in compactions]}")
+    require(snap["in_budget"] and snap["p99_s"] <= slo_target and snap["count"] >= 1,
+            f"the freshness SLO failed: {snap}")
+    require(rate["ok"], f"the throughput SLO failed: {rate}")
+    require(not alive, f"children {alive} outlived the phase; their log: {log_tail}")
     return rec
 
 
@@ -3835,7 +4389,8 @@ def main(argv: list) -> int:
     ).stdout.strip()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+    emit("device", seconds=time.perf_counter() - started, kind=kind,
+         count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, allow_tf32_matmul=False,
          allow_tf32_cudnn=False)
 
@@ -3895,6 +4450,9 @@ def main(argv: list) -> int:
     # ops: no hand kernel on their path)
     phase_loader(torch, M, L, kind)
     torch.cuda.empty_cache()
+    # 12. the always-fresh loop: CDC writer, leased compactors, the follower
+    # on the card
+    phase_freshness(torch, L, kind)
 
     # ragged_score's record: the scale leg's 4-bit plane, the 1-bit plane's beside it
     timings = {**kernels["timings"], "packed_scan": sl["packed_scan_timing"],

@@ -10,9 +10,9 @@ the reference's ``to_torch`` dataset adapter.
 The port's copy of ``lakesoul_tpu/catalog.py``.  The table vector index
 (``build_vector_index``, ``vector_search``, ``scan().vector_search``) runs on
 the card unless ``device="cpu"`` is passed.  ``via_scanplane`` sources a
-scan's batches from a scan-plane gateway.  The freshness layer is not ported
-yet: ``follow`` raises :class:`ConfigError` where the reference imports it
-lazily.
+scan's batches from a scan-plane gateway.  ``follow`` is the freshness
+follower (``freshness/follower.py``): an unbounded, retry-hardened stream over
+the table's commit log with an exactly-once resumable position.
 """
 
 from __future__ import annotations
@@ -1259,10 +1259,78 @@ class LakeSoulScan:
                 return n if self._limit is None else min(n, self._limit)
         return sum(len(b) for b in self.to_batches())
 
-    def follow(self, *args, **kwargs) -> Iterator[pa.RecordBatch]:
-        """Unbounded incremental source over the table's commit log: the
-        freshness layer is not ported yet."""
-        raise ConfigError("follow (the freshness layer) is not ported yet")
+    def follow(
+        self,
+        start_timestamp_ms: int | None = None,
+        *,
+        poll_interval: float = 1.0,
+        stop_event=None,
+        settle_ms=None,  # deprecated no-op, kept for API compat (see note)
+        cursors: dict | None = None,
+        state=None,
+        slo=None,
+        retry_policy=None,
+    ) -> Iterator[pa.RecordBatch]:
+        """Unbounded incremental source: yield batches for every commit after
+        ``start_timestamp_ms`` (default: now), then keep polling for new
+        commits — the role of the reference's unbounded Flink source
+        (LakeSoulSource + dynamic split enumerator).  Stops when
+        ``stop_event`` (threading.Event) is set; the idle wait rides
+        ``stop_event.wait(poll_interval)``, so shutdown latency is bounded
+        by ONE poll tick.
+
+        The loop is the freshness follower
+        (:class:`lakesoul_tpu_torch.freshness.follower.FreshFollower`): polls and
+        unit decodes run under the shared
+        :class:`~lakesoul_tpu_torch.runtime.resilience.RetryPolicy` (transient
+        store/meta faults retry on the seeded schedule instead of killing
+        the stream; permanent failures raise typed), and an attached
+        ``slo`` (:class:`~lakesoul_tpu_torch.freshness.slo.SloMonitor`) observes
+        each delivered commit's commit-to-visible latency.
+
+        Resume, two grains:
+
+        - ``cursors`` (a dict the stream mutates in place; serialize with
+          ``meta.client.follow_cursors_to_json``): commit-grained — a
+          restarted consumer continues after the last *enumerated* commit
+          (the pending-splits checkpointing of the reference's Flink
+          source).
+        - ``state`` (a :class:`~lakesoul_tpu_torch.freshness.follower.
+          FollowerState` or its JSON): row-exact — replays the recorded
+          undelivered units, so a killed consumer resumes with no
+          duplicated and no lost row.
+
+        .. deprecated::
+            ``settle_ms`` has been a no-op since follow moved to version
+            cursors (a commit is either visible with a new version number
+            or it is not); the parameter is retained so existing callers
+            keep working.
+        """
+        if settle_ms is not None:
+            import warnings
+
+            warnings.warn(
+                "LakeSoulScan.follow(settle_ms=...) is deprecated and has"
+                " no effect: version cursors made the settle window"
+                " obsolete",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+        from lakesoul_tpu_torch.freshness.follower import FollowerState, FreshFollower
+
+        if isinstance(state, str):
+            state = FollowerState.from_json(state)
+        follower = FreshFollower(
+            self,
+            start_timestamp_ms=start_timestamp_ms,
+            state=state,
+            cursors=cursors,
+            poll_interval=poll_interval,
+            stop_event=stop_event,
+            retry_policy=retry_policy,
+            slo=slo,
+        )
+        yield from follower.iter_batches()
 
     # torch delivery
     def to_torch_iter(self, **kwargs):

@@ -576,8 +576,26 @@ class TorchBatchIterator:
         consumer: attribution tag for this loader's ``queue`` stall series
             (``lakesoul_scan_stage_seconds{stage=queue,consumer=...}``).
             Default ``"local"``.
-        follow: the continuous source over the commit log is not ported yet
-            and raises.
+        follow: make the loader a CONTINUOUS training source over the
+            table's commit log (the freshness layer): ``True`` follows
+            from now, a dict passes follower options
+            (``start_timestamp_ms``, ``state``, ``poll_interval``,
+            ``stop_event``, ``slo``, ``retry_policy`` — see
+            :class:`lakesoul_tpu_torch.freshness.follower.FreshFollower`),
+            or an existing ``FollowBatchSource``.  The stream never ends on
+            its own — set a ``stop_event`` to shut it down within one poll
+            tick; the iterator then drains what is in flight and ends.
+            Resume via :meth:`follow_state_json`, NOT via ``checkpoint``
+            (the follower carries its own exactly-once position; mixing the
+            two raises).  The pipeline lag is the reference's: on the card
+            the copy stream keeps ``device_prefetch`` windows in flight and
+            the rebatcher holds sub-``batch_size`` remainders, so when
+            ingest PAUSES the consumer trails the stream head by up to
+            ``device_prefetch`` windows + one partial window until more
+            commits arrive (continuous traffic keeps the lag bounded and
+            flowing; latency-critical low-traffic consumers should use
+            ``device_put=False``, where delivery is immediate).  The
+            freshness SLO measures at the source hand-off either way.
         multihost: shard the scan by this process's position on the data
             axis (``torch.distributed``'s rank and world size, overridable
             via ``LAKESOUL_FLEET_PROCESS_INDEX``/``_COUNT``) before the
@@ -634,9 +652,6 @@ class TorchBatchIterator:
                 raise ConfigError(
                     "cache='device' cannot cache an unbounded follow stream"
                 )
-            from lakesoul_tpu_torch.data.batch_source import batch_source_for
-
-            batch_source_for(scan, follow=follow)  # raises: not ported yet
         if cache == "device" and checkpoint is not None:
             # a replayed epoch never touches the input stream, so a loader
             # checkpoint could not represent its position
@@ -722,7 +737,15 @@ class TorchBatchIterator:
         self._drop_remainder = drop_remainder
         self._io_threads = io_threads
         self._checkpoint = checkpoint
-        self._rows_out = 0  # consumer-delivered rows
+        # follow mode: ONE seam source for the iterator's lifetime — its
+        # follower owns the exactly-once position follow_state_json() reads
+        self._follow_source = None
+        self._follow_started = False
+        if follow is not None and follow is not False:
+            from lakesoul_tpu_torch.data.batch_source import batch_source_for
+
+            self._follow_source = batch_source_for(scan, follow=follow)
+        self._rows_out = 0  # consumer-delivered rows (follow resume anchor)
         if checkpoint is not None:
             digest = self._plan_digest()
             if checkpoint.plan_digest is None:
@@ -758,6 +781,17 @@ class TorchBatchIterator:
             return self._replay._batches
         return None
 
+    def follow_state_json(self) -> str:
+        """Resume-ready follower position covering exactly the batches this
+        iterator has DELIVERED (rows sitting in the prefetch pipeline or in
+        flight to the card replay on restart — never skipped, never
+        duplicated).  Persist it next to the model checkpoint; a restarted
+        trainer continues with ``scan.to_torch_iter(follow={"state": saved,
+        ...})``.  Only meaningful in follow mode."""
+        if self._follow_source is None:
+            raise ConfigError("follow_state_json() requires follow mode")
+        return self._follow_source.resume_state(self._rows_out).to_json()
+
     # ------------------------------------------------------------- pipeline
     def _epoch_windows(self, extra_skip: int = 0) -> "Iterator[_Window]":
         """Fixed-size row windows over one epoch's scan (the pipeline
@@ -774,12 +808,18 @@ class TorchBatchIterator:
             tensor_shapes=self._tensor_shapes,
         )
         h = self._h_rebatch
-        # the batch-source seam: in-process decode or a scan-plane fleet
-        # (scan.via_scanplane) — everything downstream (rebatch, collate,
-        # prefetch, the copy to the card, stats) is identical either way
+        # the batch-source seam: in-process decode, a scan-plane fleet
+        # (scan.via_scanplane) OR a continuous follow stream (follow=) —
+        # everything downstream (rebatch, collate, prefetch, the copy to
+        # the card, stats) is identical either way
         from lakesoul_tpu_torch.data.batch_source import batch_source_for
 
-        for arrow_batch in batch_source_for(self._scan).iter_batches(
+        source = (
+            self._follow_source
+            if self._follow_source is not None
+            else batch_source_for(self._scan)
+        )
+        for arrow_batch in source.iter_batches(
             num_threads=self._io_threads, skip_rows=skip
         ):
             t0 = time.perf_counter()
@@ -823,6 +863,19 @@ class TorchBatchIterator:
         return len(window), batch, slot
 
     def __iter__(self):
+        if self._follow_source is not None:
+            if self._follow_started:
+                # a second pass would rebuild the follower from the INITIAL
+                # state while _rows_out kept accumulating: duplicated
+                # delivery now and a follow_state_json() position pointing
+                # into a snapshot ring that never saw those rows later
+                raise ConfigError(
+                    "a follow-mode iterator is single-pass (the stream is"
+                    " unbounded): build a new iterator — resuming with"
+                    " follow={'state': it.follow_state_json()} — instead"
+                    " of re-iterating"
+                )
+            self._follow_started = True
         if self._replay is not None and self._replay.ready:
             # steady state: replay the device-resident epoch — no storage,
             # no host pipeline, no link traffic; a spilled cache replays its

@@ -11,8 +11,12 @@ the port of ``lakesoul_tpu/fleet/__main__.py``.
   ``--device-put`` is accepted, as the reference's command line has it:
   the card is already the default.  ``--location`` reads the shard through
   a scan-plane gateway instead of decoding in-process.
-- ``autoscale``: the leased scanplane worker controller.  It needs the
-  autoscaler, which the port has not yet: it raises ``ConfigError``.
+- ``autoscale``: the leased worker controller.  Watches one spool's
+  backlog (plus the obs fleet's merged SLO view when armed) and sizes a
+  ``python -m lakesoul_tpu_torch.scanplane worker`` fleet between
+  ``--min/--max``.  Every action is one JSON line on stdout (``{"event":
+  "spawn", "pid": ...}``, the reference's lines) so a parent can watch
+  spawns, takeovers and backfills without scraping logs.
 """
 
 from __future__ import annotations
@@ -23,11 +27,48 @@ import json
 import logging
 import time
 
-from lakesoul_tpu_torch.errors import ConfigError
-
 
 def _cmd_autoscale(args) -> int:
-    raise ConfigError("the autoscale role (fleet/autoscale.py) is not ported yet")
+    from lakesoul_tpu_torch import LakeSoulCatalog
+    from lakesoul_tpu_torch.obs import fleet
+    from lakesoul_tpu_torch.fleet.autoscale import (
+        WorkerAutoscaler,
+        WorkerSpawner,
+        emit_jsonl,
+    )
+
+    catalog = LakeSoulCatalog(args.warehouse, db_path=args.db_path)
+    spawner = WorkerSpawner(
+        args.warehouse,
+        args.spool,
+        db_path=args.db_path,
+        lease_ttl_s=args.worker_lease_ttl_s,
+        poll_s=args.worker_poll_s,
+    )
+    controller = WorkerAutoscaler(
+        catalog.client.store,
+        spawner,
+        spool_dir=args.spool,
+        min_workers=args.min_workers,
+        max_workers=args.max_workers,
+        controller_id=args.controller_id,
+        lease_ttl_s=args.lease_ttl_s,
+    )
+    fleet.arm("fleet-autoscaler", service_id=controller.controller_id)
+    emit_jsonl({
+        "event": "autoscaler",
+        "controller": controller.controller_id,
+        "spool": args.spool,
+        "min": controller.policy.min_workers,
+        "max": controller.policy.max_workers,
+    })
+    try:
+        controller.run_forever(poll_s=args.poll_s, on_event=emit_jsonl)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        controller.stop()
+    return 0
 
 
 def _cmd_train(args) -> int:
@@ -88,9 +129,22 @@ def main(argv=None) -> int:
     )
     sub = p.add_subparsers(dest="role")
 
-    # the role raises until it is ported: its flags are taken and not read
-    pa_ = sub.add_parser("autoscale", help="leased scanplane worker controller (not ported yet)")
+    pa_ = sub.add_parser("autoscale", help="leased scanplane worker controller")
+    pa_.add_argument("--warehouse", required=True)
+    pa_.add_argument("--db-path", default=None)
+    pa_.add_argument("--spool", required=True)
+    pa_.add_argument("--min-workers", type=int, default=None,
+                     help="floor (default LAKESOUL_FLEET_MIN_WORKERS or 1)")
+    pa_.add_argument("--max-workers", type=int, default=None,
+                     help="ceiling (default LAKESOUL_FLEET_MAX_WORKERS or 8)")
+    pa_.add_argument("--lease-ttl-s", type=float, default=10.0,
+                     help="controller lease TTL (fail-over bound)")
+    pa_.add_argument("--poll-s", type=float, default=1.0)
+    pa_.add_argument("--controller-id", default=None)
+    pa_.add_argument("--worker-lease-ttl-s", type=float, default=None)
+    pa_.add_argument("--worker-poll-s", type=float, default=None)
     pa_.set_defaults(fn=_cmd_autoscale)
+
 
     pt = sub.add_parser("train", help="one emulated training host (rows + sha256)")
     pt.add_argument("--warehouse", required=True)
@@ -109,9 +163,7 @@ def main(argv=None) -> int:
                          " knob: makes consumption device-bound)")
     pt.set_defaults(fn=_cmd_train)
 
-    args, unknown = p.parse_known_args(argv)
-    if unknown and args.role != "autoscale":
-        p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = p.parse_args(argv)
     if args.role is None:
         p.error("choose a role: autoscale | train")
     logging.basicConfig(level=logging.INFO)

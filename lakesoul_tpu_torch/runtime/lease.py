@@ -1,7 +1,7 @@
 """The lease keepalive a leased job runs under (the port's copy of
-``_LeaseHeartbeat`` in ``lakesoul_tpu/compaction/service.py``; the scan
-plane's worker holds a range lease with it, and the leased compaction
-service and the autoscaler will when they are ported)."""
+``_LeaseHeartbeat`` in ``lakesoul_tpu/compaction/service.py``): the scan
+plane's worker holds a range lease with it, the leased compaction service a
+partition lease, and the worker autoscaler its controller lease."""
 
 from __future__ import annotations
 

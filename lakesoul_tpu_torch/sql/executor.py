@@ -1,7 +1,7 @@
 """SQL execution over catalog scans (the port's copy of
-``lakesoul_tpu/sql/executor.py``: ``CALL clean`` raises ``ConfigError``
-until the compaction cleaner is ported, and ``CALL build_vector_index``
-builds on the session's ``device``, the card unless ``"cpu"`` is named).
+``lakesoul_tpu/sql/executor.py``: ``CALL clean`` runs the compaction
+cleaner, and ``CALL build_vector_index`` builds on the session's ``device``,
+the card unless ``"cpu"`` is named).
 
 Role parity with rust/lakesoul-datafusion's embedded engine: the WHERE tree
 becomes the framework's portable Filter (predicate pushdown + bucket pruning
@@ -15,7 +15,6 @@ import time
 import pyarrow as pa
 import pyarrow.compute as pc
 
-from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.io.filters import Filter
 from lakesoul_tpu_torch.obs import registry, span
 from lakesoul_tpu_torch.sql import parser as ast
@@ -878,8 +877,10 @@ class SqlSession:
             n = t.build_vector_index(str(args[1]), device=self.device)
             return pa.table({"indexed_vectors": pa.array([n], pa.int64())})
         if stmt.procedure == "clean":
-            # the cleaner lives in compaction/, which the port has not yet
-            raise ConfigError("CALL clean (the compaction cleaner) is not ported yet")
+            from lakesoul_tpu_torch.compaction import Cleaner
+
+            result = Cleaner(self.catalog).clean_all()
+            return pa.table({k: pa.array([v], pa.int64()) for k, v in result.items()})
         raise SqlError(f"unknown procedure {stmt.procedure!r}")
 
     # ------------------------------------------------------------------- DQL

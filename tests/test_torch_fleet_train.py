@@ -154,11 +154,15 @@ def test_digest_of_a_tensor_batch_is_the_numpy_batchs():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["autoscale", "--spool", "/nonexistent"], "autoscale"),
-    (["autoscale", "--spool", "/nonexistent", "--min-workers", "2", "--lease-ttl-s", "5"],
+    (["autoscale", "--spool", "/nonexistent", "--min-workers", "3", "--max-workers", "1"],
+     "autoscale"),
+    (["autoscale", "--spool", "/nonexistent", "--min-workers", "-1", "--lease-ttl-s", "5"],
      "autoscale"),
 ])
 def test_unported_roles_raise(argv, match, warehouse):
+    """The autoscale role is ported (``tests/test_torch_autoscale.py`` runs
+    it): what it refuses is what the reference refuses, bounds that no
+    fleet can meet, before it spawns anything."""
     from lakesoul_tpu_torch.fleet.__main__ import main
 
     with pytest.raises(ConfigError, match=match):

@@ -251,9 +251,9 @@ def test_actions_equal_the_reference(gateways):
 
 
 def test_call_clean_keeps_the_ports_error(gateways):
-    """The compaction cleaner is not ported: the port's gateway passes the
-    RBAC gate and then fails with the executor's ConfigError, never a
-    silent no-op."""
+    """``CALL clean`` is warehouse-wide: a scoped user is refused at the
+    RBAC gate; an unscoped one gets the cleaner's counts, the reference
+    cleaner's columns."""
     c = _clients(gateways)["port"]
     with pytest.raises(flight.FlightError, match="warehouse-wide"):  # priv: team1
         c.action("sql", {"statement": "CALL clean()"})
@@ -263,8 +263,10 @@ def test_call_clean_keeps_the_ports_error(gateways):
     server = LakeSoulFlightServer(open_cat, jwt_secret=SECRET, device="cpu")
     try:
         c2 = LakeSoulFlightClient(_serve(server), token=gateways["token"])
-        with pytest.raises(flight.FlightError, match="not ported yet"):
-            c2.action("sql", {"statement": "CALL clean()"})
+        out = pa.ipc.open_stream(c2.action("sql", {"statement": "CALL clean()"})[0]).read_all()
+        assert out.column_names == ["versions_dropped", "files_deleted",
+                                    "discarded_deleted", "partitions_expired"]
+        assert out.num_rows == 1
     finally:
         server.shutdown()
 

@@ -19,8 +19,10 @@ publisher read by its aggregator through the exporter run too; every
 ``parallel`` module, ``annplane/collective``, ``entry`` and every module
 added with the SQL layer and the fleet plane are among the modules
 imported, as is every module of the scan plane, the gateway, the transport
-seam and the checkpointed writer.  It has to be a subprocess: ``tests/conftest.py``
-imports jax into every test process.
+seam and the checkpointed writer, and every module of the compaction
+package, the follower, the writer role, database sync and the autoscaler.
+It has to be a subprocess: ``tests/conftest.py`` imports jax into every
+test process.
 """
 
 import ast
@@ -215,6 +217,10 @@ _CHILD = textwrap.dedent(
         assert hit["ids"] == [250], hit
         stop.set()
         srv.shutdown()
+    for name in ("compaction", "compaction.service", "compaction.events", "compaction.cleaner",
+                 "compaction.__main__", "freshness.follower", "freshness.__main__",
+                 "streaming.db_sync", "fleet.autoscale"):
+        assert f"lakesoul_tpu_torch.{name}" in mods, name
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

@@ -195,9 +195,12 @@ def test_a_string_leaf_to_a_device_raises_naming_its_column(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"sharding": object()}, {"cache": "device", "device_put": False},
-                                {"follow": True}],
+                                {"follow": 42}],
                          ids=["sharding", "cache_device", "follow"])
 def test_options_the_port_does_not_take_raise(tmp_path, kw):
+    """``follow`` is ported (``tests/test_torch_freshness.py``): a value
+    that names no follow position raises, as in the reference, instead of
+    following from now."""
     _, port = _scans(_write(tmp_path, "plain"))
     with pytest.raises(ConfigError):
         port.to_torch_iter(device="cpu", **kw)

@@ -253,9 +253,17 @@ def test_to_huggingface_gives_the_reference_rows(streaming, table):
 
 # ------------------------------------------------------------- procedures
 def test_call_clean_is_not_ported_yet(tmp_path):
-    s = SqlSession(PORT.LakeSoulCatalog(str(tmp_path)), device="cpu")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        s.execute("CALL clean()")
+    """``CALL clean`` runs the port's cleaner (it was refused until the
+    compaction package was ported) and returns the reference's table."""
+    got = {}
+    for name, pkg in (("port", PORT), ("ref", REF)):
+        cat = pkg.LakeSoulCatalog(str(tmp_path / name))
+        cat.create_table("t", pa.schema([("id", pa.int64())]))
+        s = SqlSession(cat, device="cpu") if name == "port" else RefSession(cat)
+        got[name] = s.execute("CALL clean()")
+    assert got["port"].equals(got["ref"])
+    assert got["port"].to_pylist() == [{"versions_dropped": 0, "files_deleted": 0,
+                                        "discarded_deleted": 0, "partitions_expired": 0}]
 
 
 def test_call_build_vector_index_and_rollback_use_the_port(tmp_path):
