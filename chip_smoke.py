@@ -7,14 +7,16 @@ Drives the port's two ANN paths on the card — the single-index IVF-RaBitQ
 serving path, with 1-bit and with 4-bit ex-codes, and the sharded ANN
 plane, at 4 bits (built from a table, and served over the Flight
 gateway's ``ann_search``) and at 1 — then the table vector index (served
-over ``vector_search`` too), then its three training steps (the Titanic
+over ``vector_search`` too, by the Flight gateway and by the Flight SQL
+server), then its three training steps (the Titanic
 MLP, read from a table, ResNet-50 and BERT-base MLM, each on a fixed batch
 and fed from a table), Switch-Base-8 (BERT-base with 8 experts), its state
 saved and restored sharded, and every sharded train step under one NCCL
 rank, then the table →
 train-step loader on a 20M-row table beside a stock DataLoader and its device
-replay cache, the fleet train role and the SQL layer on that table, then
-the scan plane (a gateway and two worker processes, then a fleet the
+replay cache, the fleet train role and the SQL layer on that table, the
+deployable Flight SQL server, storage proxy (direct and in front of a fake
+S3) and console on it, then the scan plane (a gateway and two worker processes, then a fleet the
 autoscaler owns) feeding the same step and the fleet train role through it,
 that table compacted by the leased compactor, then the always-fresh loop
 (CDC writer, leased compactors, the follower on the card), and fails if
@@ -127,6 +129,12 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              the opened shards): the 64 queries, each answer bit-equal to
              the direct ``vector_search``'s, ``packed_dot`` launched
              (counted); p50 / p99 beside the direct calls'.
+7e. flight_sql_vector — the same behind an in-process
+             ``LakeSoulFlightSqlServer`` (``device=None``): ``SELECT
+             count(*)`` over Flight SQL = ``count_rows()``, then the 64
+             queries through the JSON fall-through's ``vector_search``, each
+             bit-equal to the direct call's, ``packed_dot`` launched
+             (counted).
 8. mlp     — BASELINE config 1 as ``examples/titanic_mlp.py`` runs it: the
              example's 2,000 synthetic rows (its own copy) written to a
              ``hash_bucket_num=4`` table keyed by ``passenger_id``, an
@@ -236,6 +244,31 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              unfiltered columns; ``SqlSession``'s ``GROUP BY label`` count and
              ``avg(f0)`` = numpy's (counts exact, means 1e-6 relative); host
              seconds.
+11c.1 flight_sql — ``python -m lakesoul_tpu_torch.service.flight_sql
+             --port 0 --jwt-secret ... --metrics-port ...`` on the loader's
+             warehouse (the card by default): a GROUP BY and a filtered,
+             ordered SELECT over ``FlightSqlClient`` = the in-process
+             ``SqlSession``'s by sha256, a prepared statement run with two
+             bound id ranges, ``GetTables`` with the schema, a 1,048,576-row
+             ingest inside a transaction (invisible before the commit,
+             visible after; its id replayed: refused by the same server, a
+             no-op through a second one; a rollback leaves no row and no
+             file), the ingested table read on the card by ``to_torch_iter``
+             = the rows ingested by sha256, ``lakesoul_flight_*`` on
+             ``/metrics``, SIGINT → exit 0, no child.  Statement s, DoGet
+             rows/s, ingest rows/s, commit s.
+11c.2 storage_proxy — ``python -m lakesoul_tpu_torch.service.storage_proxy``
+             on the same warehouse: every live data file fetched in 8 MiB
+             Range GETs through ``ProxyStorageClient`` = the local file by
+             sha256, ``list_objects`` covering them, another domain's table
+             403, a 64 MiB multipart PUT in 4 parts read back; restarted
+             with ``LAKESOUL_PROXY_S3_*`` in front of a stdlib fake S3 that
+             checks every SigV4 signature with the port's ``sigv4``: the PUT
+             and the ranged GETs again.  GB/s direct and through the
+             upstream.
+11c.3 console — ``python -m lakesoul_tpu_torch.service.console -w WH -c
+             "count bench"`` prints ``count_rows()``; ``-c lint`` the
+             not-ported error.
 11d. scanplane — on the loader's table, ``python -m
              lakesoul_tpu_torch.scanplane service --workers 2`` as a child
              (its spool on ``/dev/shm`` when ``df`` shows room for the
@@ -309,6 +342,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -402,6 +436,21 @@ FRESH_INTERVAL_S, FRESH_BATCH, FRESH_TTL_S, FRESH_FAULT_P = 0.5, 65_536, 2.0, 0.
 FRESH_DEADLINE_S, FRESH_TPUT_FLOOR = 180.0, 100.0  # micro.py's throughput floor, rows/s
 # the compaction run on the loader's table, and the autoscaled fleet's bounds
 COMPACT_TIMEOUT_S, AUTOSCALE_MIN, AUTOSCALE_MAX, AUTOSCALE_WAIT_S = 600, 2, 4, 60.0
+# profiled windows device_ms_per_launch takes at most: the profiler has
+# handed back a window with no device time in it (seen on the 4-bit plane's
+# item grouping), and a second window then measures the same calls
+PROFILE_WINDOWS = 2
+# slice 6's Flight SQL server, storage proxy and console on the loader's
+# table: the transaction's ingest rows, how long a deployable may take to
+# print its first lines, a filtered SELECT of ~2.9 % of the rows, a prepared
+# statement run with two id ranges, the proxy's Range GET size and its
+# multipart object
+FSQL_INGEST_ROWS, SERVICE_START_S = 1_048_576, 120
+FSQL_SELECT = "SELECT id, f0, f1, label FROM bench WHERE f1 > 1.9 ORDER BY id"
+FSQL_PREPARED = "SELECT id, f0, label FROM bench WHERE id >= ? AND id < ? ORDER BY id"
+FSQL_BOUNDS = ((1_000_000, 1_400_000), (15_000_000, 15_250_000))
+PROXY_RANGE, PROXY_MP_BYTES, PROXY_MP_PARTS = 8 << 20, 64 << 20, 4
+CONSOLE_LINT = "error: ConfigError: lint (analysis/) is not ported yet"
 SQL_FILTER = "f0 > 0.5 AND label = 1"
 SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
                 "ORDER BY label")
@@ -417,6 +466,11 @@ PLANE_TABLE_BATCH, ANN_SCALE_RSS_CEILING_MB = 262_144, 4096
 # the slice's corpus as a table: build_vector_index / vector_search
 VT_BUCKETS, VT_NLIST, VT_NPROBE, VT_CHUNK = 4, 256, 256, 250_000
 VT_QUERIES, VT_SCAN_QUERIES = 64, 8
+# the card = CPU hold's CPU searches at a time: each copies the ~2 GB of raw
+# vectors it re-ranks from, so one at a time leaves memory bandwidth idle
+# between its copies (four took 1.3x less wall time than one on an 8-core
+# host, answers equal)
+VT_CPU_THREADS = 4
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -1033,13 +1087,17 @@ def device_ms_per_launch(torch, fn, iters: int, name: str) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and name in ev.key)
-    require(us > 0, f"the profiler saw no device time for {name or 'the call'}")
+    for _ in range(PROFILE_WINDOWS):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA and name in ev.key)
+        if us > 0:
+            break
+    require(us > 0, f"the profiler saw no device time for {name or 'the call'} in "
+                    f"{PROFILE_WINDOWS} windows")
     return us / 1e3 / iters
 
 
@@ -2961,13 +3019,18 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
             require(np.array_equal(emb, x_np), "scan().vector_search rows != the corpus's")
         t0 = time.perf_counter()
         with TableVectorIndex("cpu") as cpu_index:
-            cpu = [t.vector_search("emb", q, top_k=10, nprobe=VT_NPROBE, index=cpu_index)
-                   for q in qs_np]
+            def on_cpu(q):
+                return t.vector_search("emb", q, top_k=10, nprobe=VT_NPROBE, index=cpu_index)
+
+            cpu = [on_cpu(qs_np[0])]  # opens the CPU shards, then VT_CPU_THREADS at a time
+            with ThreadPoolExecutor(VT_CPU_THREADS) as pool:
+                cpu += list(pool.map(on_cpu, qs_np[1:]))
         cpu_s = time.perf_counter() - t0
         held = sum(same_topk(c[0], c[1], g[0], g[1]) for c, g in zip(cpu, got))
         require(held == VT_QUERIES, f"the table index on the card != on the CPU on "
                                     f"{VT_QUERIES - held} of {VT_QUERIES} queries")
         gateway = phase_gateway_vector(K, R, t, qs_np, got, lat, kind)
+        flight_sql = phase_flight_sql_vector(K, R, t, qs_np, got, kind)
     finally:
         shutil.rmtree(wh, ignore_errors=True)
     del x, queries
@@ -2982,9 +3045,10 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
            "recall_at_10": recall, "recall_floor": RECALL_FLOOR,
            "scan_vector_search_held": f"{len(scans)}/{len(scans)}",
            "card_equals_cpu": f"{held}/{VT_QUERIES}", "cpu_search_s": cpu_s,
+           "cpu_search_threads": VT_CPU_THREADS,
            "launches": launches}
     emit("vector_table", **rec)
-    return {"launches": launches, "gateway": gateway}
+    return {"launches": launches, "gateway": gateway, "flight_sql_vector": flight_sql}
 
 
 @timed_phase
@@ -3035,6 +3099,69 @@ def phase_gateway_vector(K, R, t, qs_np, direct: list, direct_lat: list, kind: s
     require(held == len(qs_np), f"{len(qs_np) - held} of {len(qs_np)} gateway answers != the "
                                 "direct vector_search's")
     require(launches["packed_dot"] > 0, f"packed_dot never ran behind the gateway: {launches}")
+    return {"launches": launches}
+
+
+@timed_phase
+def phase_flight_sql_vector(K, R, t, qs_np, direct: list, kind: str) -> dict:
+    """The table index behind the Flight SQL server: an in-process
+    ``LakeSoulFlightSqlServer`` (a JWT secret, ``device=None``: the card) on
+    the table's catalog; ``SELECT count(*)`` over Flight SQL must equal
+    ``count_rows()``, and the VT_QUERIES queries through the JSON
+    fall-through's ``vector_search`` action on the same server must each
+    equal the direct ``vector_search`` exactly, ``packed_dot`` launched
+    (counted from 0 around the queries)."""
+    from lakesoul_tpu_torch.service import (FlightSqlClient, LakeSoulFlightClient,
+                                            LakeSoulFlightSqlServer)
+    from lakesoul_tpu_torch.service.jwt import Claims, JwtServer
+
+    secret = secrets.token_hex(16)
+    server = LakeSoulFlightSqlServer(t.catalog, jwt_secret=secret,
+                                     device=None if DEVICE == "cuda" else DEVICE)
+    threading.Thread(target=server.serve, daemon=True).start()
+    try:
+        loc = f"grpc://127.0.0.1:{server.port}"
+        token = JwtServer(secret).create_token(Claims("chip_smoke"))
+        sql = FlightSqlClient(loc, token=token)
+        t0 = time.perf_counter()
+        counted = sql.execute(f"SELECT count(*) AS c FROM {t.info.table_name}").column(
+            "c").to_pylist()
+        count_s = time.perf_counter() - t0
+        sql.close()
+        client = LakeSoulFlightClient(loc, token=token)
+
+        def ask(q):
+            return json.loads(client.action("vector_search", {
+                "table": t.info.table_name, "column": "emb", "query": q.tolist(), "top_k": 10,
+                "nprobe": VT_NPROBE})[0])
+
+        t0 = time.perf_counter()
+        ask(qs_np[0])  # opens the shards on the card, as the direct path's first search
+        first_s = time.perf_counter() - t0
+        reset_launches(K, R)
+        got, lat = [], []
+        for q in qs_np:
+            t0 = time.perf_counter()
+            got.append(ask(q))
+            lat.append(time.perf_counter() - t0)
+        launches = read_launches(K, R)
+    finally:
+        server.shutdown()
+    rows = t.scan().count_rows()
+    held = sum(same_answer(g, *d) for g, d in zip(got, direct))
+    lat_ms = np.array(lat) * 1e3
+    rec = {"config": "the table index behind LakeSoulFlightSqlServer: SELECT count(*) over "
+                     f"Flight SQL, then {len(qs_np)} vector_search actions at nprobe "
+                     f"{VT_NPROBE}", "device_kind": kind, "count": counted, "count_rows": rows,
+           "count_s": count_s, "first_s": first_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "held_exactly": f"{held}/{len(qs_np)}",
+           "launches": launches}
+    emit("flight_sql_vector", **rec)
+    require(counted == [rows], f"Flight SQL count(*) {counted} != count_rows() {rows}")
+    require(held == len(qs_np), f"{len(qs_np) - held} of {len(qs_np)} Flight SQL server "
+                                "answers != the direct vector_search's")
+    require(launches["packed_dot"] > 0,
+            f"packed_dot never ran behind the Flight SQL server: {launches}")
     return {"launches": launches}
 
 
@@ -3502,6 +3629,484 @@ def phase_sql(torch, M, L, t, kind: str) -> dict:
         and abs(g["mean_f0"] - w["mean_f0"]) <= 1e-6 * abs(w["mean_f0"])
         for g, w in zip(groups, want)), f"GROUP BY {groups} != numpy {want}")
     return rec
+
+
+def arrow_sha(tab) -> str:
+    """sha256 over a result's column names, types and values, in order."""
+    h = hashlib.sha256()
+    for name, col in zip(tab.column_names, tab.columns):
+        col = col.combine_chunks()
+        h.update(f"{name}:{col.type}".encode())
+        h.update(col.to_numpy(zero_copy_only=False).tobytes())
+    return h.hexdigest()
+
+
+def columns_sha(cols: dict) -> tuple[str, int]:
+    """sha256 over numpy columns sorted by ``id``, names in order; rows."""
+    order = np.argsort(cols["id"], kind="stable")
+    h = hashlib.sha256()
+    for name in sorted(cols):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(cols[name][order]).tobytes())
+    return h.hexdigest(), int(len(order))
+
+
+def first_lines(proc, n: int, timeout_s: float = SERVICE_START_S) -> tuple[list, float]:
+    """The first ``n`` lines ``proc`` prints (fewer past ``timeout_s``) and
+    the seconds they took."""
+    lines, t0 = [], time.perf_counter()
+
+    def read():
+        for _ in range(n):
+            line = proc.stdout.readline()
+            if not line:
+                return
+            lines.append(line)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout_s)
+    return list(lines), time.perf_counter() - t0
+
+
+def card_default() -> tuple:
+    """A deployable's ``--device``: none on the card (its default), the
+    CPU's when a rehearsal sets DEVICE."""
+    return () if DEVICE == "cuda" else ("--device", DEVICE)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def log_tail(log) -> str:
+    log.seek(0)
+    return log.read()[-3000:]
+
+
+def stop_service(proc, log, what: str) -> int:
+    """SIGINT a deployable that starts no child; require it to exit 0 with
+    no child left; its exit code."""
+    children = proc_children(proc.pid)
+    stop_child(proc)
+    alive = [pid for pid in children if proc_alive(pid)]
+    for pid in alive:
+        os.kill(pid, signal.SIGKILL)
+    require(not alive, f"{what} left children alive after SIGINT: {alive}")
+    require(proc.returncode == 0, f"{what} exited {proc.returncode} on SIGINT: {log_tail(log)}")
+    return proc.returncode
+
+
+def start_fake_s3(access_key: str, secret_key: str):
+    """A stdlib S3 endpoint on 127.0.0.1 holding objects in memory, which
+    checks every request's SigV4 signature with the port's ``sigv4`` (the
+    signer the CPU tests hold against AWS's published examples); returns
+    the server, its objects and its count of refused signatures."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from lakesoul_tpu_torch.service import sigv4
+
+    objects, refused = {}, [0]
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _signed(self) -> bool:
+            path, _, query = self.path.partition("?")
+            if sigv4.verify_signature(self.command, path, query, dict(self.headers),
+                                      secret_keys={access_key: secret_key}):
+                return True
+            refused[0] += 1
+            self.send_error(403, "SignatureDoesNotMatch")
+            return False
+
+        def do_PUT(self):
+            if self._signed():
+                objects[self.path] = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        def do_GET(self):
+            if not self._signed():
+                return
+            body = objects.get(self.path)
+            if body is None:
+                self.send_error(404, "NoSuchKey")
+                return
+            lo, hi, rng = 0, len(body), self.headers.get("Range", "")
+            if rng.startswith("bytes="):
+                lo_s, _, hi_s = rng[6:].partition("-")
+                lo, hi = int(lo_s), int(hi_s) + 1 if hi_s else len(body)
+                self.send_response(206)
+                self.send_header("Content-Range", f"bytes {lo}-{hi - 1}/{len(body)}")
+            else:
+                self.send_response(200)
+            self.send_header("Content-Length", str(hi - lo))
+            self.end_headers()
+            self.wfile.write(body[lo:hi])
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, objects, refused
+
+
+@timed_phase
+def phase_flight_sql(torch, L, t, count: int, kind: str) -> dict:
+    """The deployable Flight SQL server on the loader's table: ``python -m
+    lakesoul_tpu_torch.service.flight_sql --port 0 --jwt-secret ...
+    --metrics-port ...`` as a child (the card by default).  Through
+    ``FlightSqlClient`` with a bearer token: SQL_GROUP_BY and FSQL_SELECT
+    equal the in-process ``SqlSession``'s answers by sha256; FSQL_PREPARED
+    prepared once, run with both FSQL_BOUNDS, each = the literal statement
+    in process; ``GetTables`` lists ``bench`` with its schema; a
+    FSQL_INGEST_ROWS-row table in the loader's schema ingested inside
+    ``begin_transaction`` is invisible before ``commit`` and visible after,
+    its transaction id replayed to the same server is refused and to a
+    second server on the warehouse is a no-op, a rolled-back transaction
+    leaves no row and no staged file; the ingested table read through
+    ``to_torch_iter`` on the card, copied back, = the ingested rows by
+    sha256; ``/metrics`` serves ``lakesoul_flight_*`` series; SIGINT stops
+    the server with exit 0 and no child left.  Statement seconds, DoGet
+    rows/s, ingest rows/s, commit seconds."""
+    import urllib.request
+
+    import pyarrow as pa
+    import pyarrow.flight as flight
+
+    from lakesoul_tpu_torch.service import FlightSqlClient, LakeSoulFlightSqlServer
+    from lakesoul_tpu_torch.service import _flight_sql_pb2 as pb
+    from lakesoul_tpu_torch.service.flight_sql import _pack, bind_parameters
+    from lakesoul_tpu_torch.service.jwt import Claims, JwtServer
+    from lakesoul_tpu_torch.sql import SqlSession
+
+    cat = t.catalog
+    wh, db = cat.warehouse, cat.client.store.db_path
+    secret, mport = secrets.token_hex(16), free_port()
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lakesoul_tpu_torch.service.flight_sql", "--warehouse", wh,
+         "--db-path", db, "--host", "127.0.0.1", "--port", "0", "--jwt-secret", secret,
+         "--metrics-port", str(mport), *card_default()],
+        env=child_env(), stdout=subprocess.PIPE, stderr=log, text=True)
+    name = "fsql_ingest"
+    try:
+        lines, start_s = first_lines(proc, 2)
+        head = "Flight SQL server on grpc://127.0.0.1:"
+        require(len(lines) == 2 and lines[1].startswith(head) and "(auth=jwt)" in lines[1],
+                f"the Flight SQL server printed {lines} in {start_s:.1f} s: {log_tail(log)}")
+        port = int(lines[1][len(head):].split()[0])
+        require(port > 0, f"--port 0 printed port {port}")
+        loc = f"grpc://127.0.0.1:{port}"
+        token = JwtServer(secret).create_token(Claims("chip_smoke"))
+        client = FlightSqlClient(loc, token=token)
+        raw = flight.FlightClient(loc)
+        opts = flight.FlightCallOptions(headers=[(b"authorization", f"Bearer {token}".encode())])
+        local = SqlSession(cat, device=DEVICE)
+
+        # statements: GetFlightInfo runs the query, DoGet streams its result
+        statements = []
+        for q in (SQL_GROUP_BY, FSQL_SELECT):
+            desc = flight.FlightDescriptor.for_command(
+                _pack(pb.CommandStatementQuery(query=q)))
+            t0 = time.perf_counter()
+            info = raw.get_flight_info(desc, options=opts)
+            info_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = raw.do_get(info.endpoints[0].ticket, options=opts).read_all()
+            get_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = local.execute(q)
+            local_s = time.perf_counter() - t0
+            statements.append({"query": q, "rows": got.num_rows, "statement_s": info_s,
+                               "do_get_s": get_s, "do_get_rows_per_s": got.num_rows / get_s,
+                               "in_process_s": local_s, "sha256": arrow_sha(got),
+                               "in_process_sha256": arrow_sha(want)})
+            require(got.num_rows > 0 and arrow_sha(got) == arrow_sha(want),
+                    f"Flight SQL's answer to {q!r} != SqlSession's: {got.slice(0, 3).to_pylist()} "
+                    f"{want.slice(0, 3).to_pylist()}")
+
+        handle = client.prepare(FSQL_PREPARED)
+        prepared = []
+        for lo, hi in FSQL_BOUNDS:
+            t0 = time.perf_counter()
+            got = client.execute_prepared(handle, params=[lo, hi])
+            run_s = time.perf_counter() - t0
+            want = local.execute(bind_parameters(FSQL_PREPARED, None, [lo, hi]))
+            prepared.append({"bounds": [lo, hi], "rows": got.num_rows, "seconds": run_s})
+            require(got.num_rows == hi - lo and arrow_sha(got) == arrow_sha(want),
+                    f"the prepared statement on [{lo}, {hi}) != SqlSession's")
+        client.close_prepared(handle)
+
+        tables = client.get_tables(table_pattern="bench", include_schema=True).to_pylist()
+        require(len(tables) == 1 and pa.ipc.read_schema(pa.py_buffer(
+            tables[0]["table_schema"])).equals(t.schema),
+                f"GetTables does not list bench with its schema: {tables}")
+
+        # transactions
+        data = next(loader_chunks(FSQL_INGEST_ROWS, FSQL_INGEST_ROWS, seed=SEED + 14))
+
+        def count_of() -> int:
+            return client.execute(f"SELECT count(*) AS c FROM {name}").column("c").to_pylist()[0]
+
+        txn = client.begin_transaction()
+        t0 = time.perf_counter()
+        n = client.ingest(name, data, transaction_id=txn, primary_keys=["id"])
+        ingest_s = time.perf_counter() - t0
+        before_commit = count_of()
+        t0 = time.perf_counter()
+        client.commit(txn)
+        commit_s = time.perf_counter() - t0
+        after_commit = count_of()
+        require(n == FSQL_INGEST_ROWS and before_commit == 0 and after_commit == n,
+                f"transaction: ingested {n}, {before_commit} rows before commit, "
+                f"{after_commit} after")
+        try:
+            client.ingest(name, data, transaction_id=txn)
+            refused = None
+        except flight.FlightError as e:
+            refused = str(e).split(". Detail:")[0]
+        require(refused is not None and "already ended" in refused,
+                f"a replay of the ended transaction was not refused: {refused}")
+        peer = LakeSoulFlightSqlServer(L.LakeSoulCatalog(wh, db_path=db), jwt_secret=secret,
+                                       device=None if DEVICE == "cuda" else DEVICE)
+        threading.Thread(target=peer.serve, daemon=True).start()
+        try:
+            peer_client = FlightSqlClient(f"grpc://127.0.0.1:{peer.port}", token=token)
+            replayed = peer_client.ingest(name, data, transaction_id=txn)
+            peer_client.close()
+        finally:
+            peer.shutdown()
+        after_replay = count_of()
+        require(after_replay == n, f"the replay to a second server added rows: {after_replay}")
+        table_dir = cat.table(name).info.table_path
+        files_before = sorted(os.listdir(table_dir))
+        txn2 = client.begin_transaction()
+        ids = np.arange(FSQL_INGEST_ROWS, 2 * FSQL_INGEST_ROWS, dtype=np.int64)
+        client.ingest(name, data.set_column(0, "id", pa.array(ids)), transaction_id=txn2)
+        client.rollback(txn2)
+        after_rollback = count_of()
+        require(after_rollback == n and sorted(os.listdir(table_dir)) == files_before,
+                f"the rollback left {after_rollback - n} rows or staged files")
+
+        # the ingested table on the card
+        batches, on_card = [], True
+        for b in cat.table(name).scan().batch_size(LOADER_BATCH).to_torch_iter(
+                device=DEVICE, drop_remainder=False):
+            on_card = on_card and all(v.device.type == torch.device(DEVICE).type
+                                      for v in b.values())
+            batches.append({k: v.cpu().numpy() for k, v in b.items()})
+        card = columns_sha({k: np.concatenate([b[k] for b in batches]) for k in batches[0]})
+        want = columns_sha({c: data.column(c).to_numpy() for c in data.column_names})
+        require(on_card and card == want,
+                f"the ingested table read on the card {card} != the ingested rows {want}")
+
+        text = urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=10).read()
+        series = sorted({line.split("{")[0].split()[0] for line in text.decode().splitlines()
+                         if line.startswith("lakesoul_flight_")})
+        require(len(series) > 0, "/metrics serves no lakesoul_flight_* series")
+        client.close()
+        raw.close()
+    finally:
+        code = stop_service(proc, log, "the Flight SQL server")
+        if name in cat.list_tables():
+            cat.drop_table(name)
+    rec = {"config": "python -m lakesoul_tpu_torch.service.flight_sql (the card, JWT) over the "
+                     "loader's 20M-row table", "device_kind": kind, "count_rows": count,
+           "start_s": start_s, "statements": statements, "prepared": prepared,
+           "get_tables": "bench with its schema", "ingest_rows": n, "ingest_s": ingest_s,
+           "ingest_rows_per_s": n / ingest_s, "commit_s": commit_s,
+           "rows_before_commit": before_commit, "rows_after_commit": after_commit,
+           "replay_same_server": refused, "replay_second_server_rows_read": replayed,
+           "rows_after_replay": after_replay, "rows_after_rollback": after_rollback,
+           "card_sha256": card[0], "card_rows": card[1], "metrics_series": series,
+           "sigint_exit": code}
+    emit("flight_sql", **rec)
+    return rec
+
+
+@timed_phase
+def phase_storage_proxy(L, t, kind: str) -> dict:
+    """The deployable storage proxy on the loader's table, twice at once:
+    ``python -m lakesoul_tpu_torch.service.storage_proxy --port 0
+    --jwt-secret ...`` in direct mode, and with ``LAKESOUL_PROXY_S3_*``
+    pointing at :func:`start_fake_s3`.  Direct: every live data file fetched
+    through ``ProxyStorageClient`` in PROXY_RANGE ``Range`` GETs, each = its
+    local file by sha256; ``list_objects`` covers the live files with their
+    sizes; a table of another domain answers 403; a PROXY_MP_BYTES multipart
+    PUT in PROXY_MP_PARTS parts round-trips.  Through the S3 upstream: the
+    object PUT and read back in ranged GETs, = by sha256, no signature
+    refused.  GB/s direct and through the upstream; each stopped by SIGINT,
+    exit 0, no child."""
+    from lakesoul_tpu_torch.service.jwt import Claims, JwtServer
+    from lakesoul_tpu_torch.service.storage_proxy import ProxyStorageClient
+
+    cat = t.catalog
+    wh, db = cat.warehouse, cat.client.store.db_path
+    secret = secrets.token_hex(16)
+    token = JwtServer(secret).create_token(Claims("chip_smoke"))
+    files = sorted({p for u in t.scan().scan_plan() for p in u.data_files})
+    blob = np.random.default_rng(SEED + 14).integers(0, 256, PROXY_MP_BYTES,
+                                                     dtype=np.uint8).tobytes()
+    blob_sha = hashlib.sha256(blob).hexdigest()
+    key = "default/bench/_chip_smoke/proxy.bin"
+
+    def ranged_sha(client, k: str, size: int) -> tuple[str, float]:
+        h, wait = hashlib.sha256(), 0.0
+        for lo in range(0, size, PROXY_RANGE):
+            t0 = time.perf_counter()
+            piece = client.get(k, range_header=f"bytes={lo}-{min(size, lo + PROXY_RANGE) - 1}")
+            wait += time.perf_counter() - t0
+            h.update(piece)
+        return h.hexdigest(), wait
+
+    access, s3_secret = "AKIDCHIPSMOKE", secrets.token_hex(20)
+    fake, objects, refused = start_fake_s3(access, s3_secret)
+    envs = {"direct": {}, "s3-upstream": {
+        "LAKESOUL_PROXY_S3_ENDPOINT": f"http://127.0.0.1:{fake.server_port}",
+        "LAKESOUL_PROXY_S3_BUCKET": "lake", "LAKESOUL_PROXY_S3_ACCESS_KEY": access,
+        "LAKESOUL_PROXY_S3_SECRET_KEY": s3_secret}}
+    procs = {}
+    for mode, env in envs.items():
+        log = tempfile.TemporaryFile(mode="w+")
+        procs[mode] = (subprocess.Popen(
+            [sys.executable, "-m", "lakesoul_tpu_torch.service.storage_proxy", "--warehouse", wh,
+             "--db-path", db, "--host", "127.0.0.1", "--port", "0", "--jwt-secret", secret],
+            env=child_env(**env), stdout=subprocess.PIPE, stderr=log, text=True), log)
+    fenced = "proxy_fenced"
+    try:
+        clients, start_s = {}, {}
+        head = "storage proxy on http://127.0.0.1:"
+        for mode, (proc, log) in procs.items():
+            lines, start_s[mode] = first_lines(proc, 1)
+            require(len(lines) == 1 and lines[0].startswith(head)
+                    and f"({mode}, auth=jwt)" in lines[0],
+                    f"the {mode} proxy printed {lines} in {start_s[mode]:.1f} s: "
+                    f"{log_tail(log)}")
+            clients[mode] = ProxyStorageClient(
+                f"http://127.0.0.1:{int(lines[0][len(head):].split()[0])}", token=token)
+
+        # ---- direct
+        client = clients["direct"]
+        fetched, get_s, local_equal = 0, 0.0, 0
+        for path in files:
+            size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                local = hashlib.file_digest(f, "sha256").hexdigest()
+            k = path[len(wh) + 1:]
+            require(client.head(k) == size, f"HEAD {k} != its {size} bytes")
+            got, wait = ranged_sha(client, k, size)
+            fetched, get_s = fetched + size, get_s + wait
+            local_equal += got == local
+        require(local_equal == len(files) > 0,
+                f"{len(files) - local_equal} of {len(files)} files fetched != their local bytes")
+        listed = dict(client.list_objects("default/bench"))
+        missing = [p for p in files if listed.get(p[len(wh) + 1:]) != os.path.getsize(p)]
+        require(not missing, f"list_objects misses {len(missing)} live files: {missing[:3]}")
+        cat.client.create_table(fenced, f"{wh}/default/{fenced}", loader_schema(),
+                                domain="chip_smoke_other")
+        try:
+            client.get(f"default/{fenced}/part-0.lsf")
+            forbidden = None
+        except PermissionError as e:
+            forbidden = str(e)
+        require(forbidden is not None and "403" in forbidden,
+                f"a table of another domain was not refused with 403: {forbidden}")
+        part = PROXY_MP_BYTES // PROXY_MP_PARTS
+        t0 = time.perf_counter()
+        upload = client.initiate_multipart(key)
+        for i in range(PROXY_MP_PARTS):
+            client.upload_part(key, upload, i + 1, blob[i * part:(i + 1) * part])
+        client.complete_multipart(key, upload)
+        mp_s = time.perf_counter() - t0
+        mp_sha, mp_get_s = ranged_sha(client, key, PROXY_MP_BYTES)
+        require(mp_sha == blob_sha, "the multipart object read back != its parts")
+        client.delete(key)
+
+        # ---- through the S3 upstream, to the fake S3 that checks every signature
+        client = clients["s3-upstream"]
+        t0 = time.perf_counter()
+        client.put(key, blob)
+        up_put_s = time.perf_counter() - t0
+        up_sha, up_get_s = ranged_sha(client, key, PROXY_MP_BYTES)
+        stored = hashlib.sha256(objects.get(f"/lake/{key}", b"")).hexdigest()
+    finally:
+        children = {mode: proc_children(proc.pid) for mode, (proc, _) in procs.items()}
+        for proc, _ in procs.values():
+            stop_child(proc)
+        fake.shutdown()
+        fake.server_close()
+        if fenced in cat.list_tables():
+            cat.drop_table(fenced)
+    exits = {mode: proc.returncode for mode, (proc, _) in procs.items()}
+    alive = [pid for pids in children.values() for pid in pids if proc_alive(pid)]
+    require(not alive and set(exits.values()) == {0},
+            f"the proxies exited {exits} on SIGINT, children alive {alive}")
+    require(up_sha == blob_sha == stored, "the object through the S3 upstream != its bytes")
+    require(refused[0] == 0, f"the fake S3 refused {refused[0]} signatures")
+    gb = 1e9
+    rec = {"config": "python -m lakesoul_tpu_torch.service.storage_proxy (JWT) over the loader's "
+                     "20M-row table, direct and with LAKESOUL_PROXY_S3_* to a stdlib fake S3 "
+                     "checking SigV4", "device_kind": kind, "files": len(files),
+           "bytes": fetched, "range_bytes": PROXY_RANGE, "start_s": start_s,
+           "direct_get_s": get_s, "direct_get_gb_per_s": fetched / get_s / gb,
+           "files_equal": local_equal, "listed": len(listed),
+           "other_domain": forbidden.split(":")[0], "multipart_bytes": PROXY_MP_BYTES,
+           "multipart_parts": PROXY_MP_PARTS, "multipart_put_s": mp_s,
+           "multipart_put_gb_per_s": PROXY_MP_BYTES / mp_s / gb,
+           "multipart_get_gb_per_s": PROXY_MP_BYTES / mp_get_s / gb,
+           "upstream_put_s": up_put_s, "upstream_put_gb_per_s": PROXY_MP_BYTES / up_put_s / gb,
+           "upstream_get_s": up_get_s, "upstream_get_gb_per_s": PROXY_MP_BYTES / up_get_s / gb,
+           "signatures_refused": refused[0], "sigint_exit": exits}
+    emit("storage_proxy", **rec)
+    return rec
+
+
+def start_console(t) -> dict:
+    """``python -m lakesoul_tpu_torch.service.console -w WH -c ...`` for
+    ``count bench`` and ``lint``, started together; they boot beside the
+    Flight SQL and proxy phases and :func:`phase_console` reads them."""
+    started = time.perf_counter()
+    procs = {line: subprocess.Popen(
+        [sys.executable, "-m", "lakesoul_tpu_torch.service.console", "-w", t.catalog.warehouse,
+         "-c", line, *card_default()], env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for line in ("count bench", "lint")}
+    return {"started": started, "procs": procs}
+
+
+def kill_console(console: dict) -> None:
+    for proc in console["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+@timed_phase
+def phase_console(console: dict, count: int, kind: str) -> dict:
+    """The console children of :func:`start_console`: ``count bench`` prints
+    ``count_rows()``; ``lint`` prints the not-ported error; each exits 0."""
+    outs = {}
+    for line, proc in console["procs"].items():
+        try:
+            out, err = proc.communicate(timeout=SERVICE_START_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        outs[line] = {"exit": proc.returncode, "stdout": out, "stderr_tail": err[-2000:],
+                      "seconds_since_start": time.perf_counter() - console["started"]}
+    emit("console", device_kind=kind, count_rows=count, runs=outs)
+    for line, run in outs.items():
+        require(run["exit"] == 0, f"console -c {line!r} exited {run['exit']}")
+    require(outs["count bench"]["stdout"] == f"{count}\n",
+            f"console count printed {outs['count bench']['stdout']!r}, not {count}")
+    require(outs["lint"]["stdout"] == CONSOLE_LINT + "\n",
+            f"console lint printed {outs['lint']['stdout']!r}")
+    return outs
 
 
 def proc_children(pid: int) -> list:
@@ -4124,6 +4729,14 @@ def phase_loader(torch, M, L, kind: str) -> dict:
         base_best = max(r["rows_per_s"] for runs in baseline.values() for r in runs)
         fleet = phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
         phase_sql(torch, M, L, t, kind)
+        console = start_console(t)
+        try:
+            phase_flight_sql(torch, L, t, count, kind)
+            phase_storage_proxy(L, t, kind)
+        except BaseException:
+            kill_console(console)
+            raise
+        phase_console(console, count, kind)
         plane = phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"],
                                 kind)
         # the scan plane is the last phase to read the table as written
@@ -4459,8 +5072,9 @@ def main(argv: list) -> int:
                "packed_dot": sl["packed_dot_timing"],
                "ragged_score": {**planes[4]["ragged_timing"],
                                 "one_bit_plane": planes[1]["ragged_timing"]}}
-    gateways = [p["gateway"] for p in (*planes.values(), vt) if p.get("gateway")]
-    require(len(gateways) == 2, "a gateway phase did not run")
+    gateways = [p[g] for p in (*planes.values(), vt) for g in ("gateway", "flight_sql_vector")
+                if p.get(g)]
+    require(len(gateways) == 3, "a gateway phase did not run")
     paths = [sl, ex, *planes.values(), vt, *gateways]
     record = []
     for name, (source, replaces, library_call) in KERNELS.items():

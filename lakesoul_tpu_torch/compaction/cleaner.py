@@ -24,8 +24,10 @@ class Cleaner:
     def __init__(self, catalog, *, retention_ms: int = 7 * 24 * 3600 * 1000,
                  discard_grace_ms: int = 3600 * 1000, deleter=None):
         """``deleter`` routes object deletes somewhere other than the store
-        directly (a callable with :func:`delete_file`'s signature); the
-        default talks to the object store like the reference's Spark
+        directly (a callable with :func:`delete_file`'s signature) — pass
+        ``ProxyDeleter`` (service/storage_proxy.py) to push the cleaner's
+        destructive traffic through the RBAC-enforcing proxy; the default
+        talks to the object store like the reference's Spark
         cleaner does."""
         self.catalog = catalog
         self.retention_ms = retention_ms

@@ -55,7 +55,7 @@ def _build(out: str) -> bool:
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         os.makedirs(os.path.dirname(out), exist_ok=True)
-        subprocess.run(
+        subprocess.run(  # lakelint: ignore[raw-process] one-shot compiler invocation at first load (timeout-bounded, reaped); not a managed service process
             ["g++", *_FLAGS, _SRC, "-o", tmp],
             check=True,
             capture_output=True,
@@ -122,7 +122,7 @@ def get_lib():
         _tried = True
         if not os.path.exists(_SRC):
             return None
-        path = library_path()
+        path = library_path()  # lakelint: ignore[transitive-lock-held-call] one-time bootstrap: the lock serializes this process's build; library_path only hashes the source file, no pool or lock beneath
         if not os.path.exists(path) and not _build(path):
             return None
         try:

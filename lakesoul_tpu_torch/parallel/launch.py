@@ -48,7 +48,7 @@ def run_ranks(target: str, n: int, args: tuple = (), *, deadline_s: float = DEAD
         root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         env["PYTHONPATH"] = os.pathsep.join([root, *sys_path, env.get("PYTHONPATH", "")])
         logs = [open(os.path.join(run_dir, f"rank{r}.log"), "w+b") for r in range(n)]
-        procs = [subprocess.Popen([sys.executable, "-m", "lakesoul_tpu_torch.parallel.launch",
+        procs = [subprocess.Popen([sys.executable, "-m", "lakesoul_tpu_torch.parallel.launch",  # lakelint: ignore[raw-process] gloo ranks of one run: each is killed at the deadline and reaped in the finally below
                                    run_dir, str(r)], env=env, stdout=logs[r], stderr=logs[r])
                  for r in range(n)]
         try:

@@ -1,22 +1,23 @@
-"""The Flight gateway of the port (``lakesoul_tpu/service/``'s gateway half):
-HS256 tokens, domain RBAC, data-asset statistics and the Arrow Flight
-server / client whose wire format is the reference's, so a client of either
-package talks to a gateway of either package.  The Flight SQL server and the
-storage proxy are not ported yet."""
+"""The port's service layer (``lakesoul_tpu/service/``): HS256 tokens,
+domain RBAC, data-asset statistics, the Arrow Flight gateway and the Flight
+SQL server on top of it, the RBAC storage proxy with its S3 and Azure
+upstreams, and the console.  Wire formats are the reference's, so a client of
+either package talks to a server of either package."""
 
 from lakesoul_tpu_torch.service.jwt import JwtServer
 from lakesoul_tpu_torch.service.rbac import RbacVerifier
 
-__all__ = ["JwtServer", "RbacVerifier", "LakeSoulFlightServer", "LakeSoulFlightClient"]
+__all__ = ["JwtServer", "RbacVerifier", "LakeSoulFlightServer", "LakeSoulFlightClient",
+           "LakeSoulFlightSqlServer", "FlightSqlClient"]
 
 
 def __getattr__(name):
     # pyarrow.flight imports are deferred: metadata/RBAC users shouldn't pay
     # for (or require) the Flight stack
     if name in ("LakeSoulFlightSqlServer", "FlightSqlClient"):
-        from lakesoul_tpu_torch.errors import ConfigError
+        from lakesoul_tpu_torch.service import flight_sql
 
-        raise ConfigError(f"{name} (service/flight_sql.py) is not ported yet")
+        return getattr(flight_sql, name)
     if name in ("LakeSoulFlightServer", "LakeSoulFlightClient"):
         from lakesoul_tpu_torch.service import flight
 

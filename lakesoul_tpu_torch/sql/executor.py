@@ -919,7 +919,7 @@ class SqlSession:
             out = pa.concat_tables([left, right], promote_options="permissive")
             if not stmt.all:
                 # same dedup the SELECT DISTINCT path uses (NULLs group equal)
-                out = out.group_by(out.column_names).aggregate([])
+                out = out.group_by(out.column_names, use_threads=False).aggregate([])
         else:
             import pandas as pd
 
@@ -1300,7 +1300,7 @@ class SqlSession:
             if hidden:
                 out = out.drop_columns(hidden)
                 hidden = []
-            out = out.group_by(out.column_names).aggregate([])
+            out = out.group_by(out.column_names, use_threads=False).aggregate([])
 
         # ---- ORDER BY (one multi-key sort; hidden columns carry unprojected
         # sort keys) / LIMIT
@@ -1437,7 +1437,7 @@ class SqlSession:
         ]
         parts = []
         for s in sets:
-            g = work.group_by(list(s)).aggregate(call_specs)
+            g = work.group_by(list(s), use_threads=False).aggregate(call_specs)
             for c in stmt.group_by:
                 if c not in s:
                     g = g.append_column(c, pa.nulls(len(g), type=work.schema.field(c).type))
@@ -1736,7 +1736,7 @@ class SqlSession:
             joined = joined.filter(pc.fill_null(_broadcast(m, len(joined)), False))
             matched = joined.column("__cidx__")
         else:
-            distinct = inner.select(keys_i).group_by(keys_i).aggregate([])
+            distinct = inner.select(keys_i).group_by(keys_i, use_threads=False).aggregate([])
             joined = (
                 outer.select(keys_o)
                 .rename_columns(["__o_" + c for c in keys_o])

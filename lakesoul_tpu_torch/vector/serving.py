@@ -84,7 +84,7 @@ class AnnEndpoint:
             "lakesoul_ann_request_seconds", endpoint=name
         )
         self._g_pending = reg.gauge("lakesoul_ann_pending")
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(target=self._run, daemon=True)  # lakelint: ignore[raw-thread] vector-serving worker: one long-lived loop for the endpoint's life; parking it on the pool would pin a worker
         self._worker.start()
 
     # ------------------------------------------------------------------ API

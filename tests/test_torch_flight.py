@@ -34,7 +34,7 @@ from lakesoul_tpu import LakeSoulCatalog as RefCatalog
 from lakesoul_tpu.service.flight import LakeSoulFlightServer as RefServer
 from lakesoul_tpu.service.rbac import RbacVerifier as RefRbac
 from lakesoul_tpu_torch import LakeSoulCatalog, _build
-from lakesoul_tpu_torch.errors import ConfigError, RBACError
+from lakesoul_tpu_torch.errors import RBACError
 from lakesoul_tpu_torch.io.filters import Filter, col
 from lakesoul_tpu_torch.service import LakeSoulFlightClient, LakeSoulFlightServer
 from lakesoul_tpu_torch.service.rbac import RbacVerifier
@@ -352,10 +352,20 @@ def test_exchange_overload_sheds_typed(tmp_path):
 
 
 def test_sql_server_is_not_ported_and_says_so():
-    import lakesoul_tpu_torch.service as svc
+    """Until the Flight SQL server was ported this name raised ConfigError;
+    now the package exports it (tests/test_torch_flight_sql.py holds it
+    against the reference), and no name of the package says "not ported"."""
+    import inspect
 
-    with pytest.raises(ConfigError, match="not ported yet"):
-        svc.LakeSoulFlightSqlServer
+    import lakesoul_tpu_torch.service as svc
+    from lakesoul_tpu_torch.service import flight_sql
+
+    assert svc.LakeSoulFlightSqlServer is flight_sql.LakeSoulFlightSqlServer
+    assert svc.FlightSqlClient is flight_sql.FlightSqlClient
+    assert issubclass(svc.LakeSoulFlightSqlServer, LakeSoulFlightServer)
+    assert "not ported" not in inspect.getsource(svc)
+    with pytest.raises(AttributeError):
+        svc.NoSuchServer
 
 
 # ------------------------------------------------------------------ ANN actions

@@ -19,8 +19,11 @@ publisher read by its aggregator through the exporter run too; every
 ``parallel`` module, ``annplane/collective``, ``entry`` and every module
 added with the SQL layer and the fleet plane are among the modules
 imported, as is every module of the scan plane, the gateway, the transport
-seam and the checkpointed writer, and every module of the compaction
-package, the follower, the writer role, database sync and the autoscaler.
+seam and the checkpointed writer, every module of the compaction package,
+the follower, the writer role, database sync and the autoscaler, and the
+rest of ``service/``: a Flight SQL server answers a query and commits a
+transaction's ingest, the console counts it, and the storage proxy takes
+a PUT, a ranged GET and a listing.
 It has to be a subprocess: ``tests/conftest.py`` imports jax into every
 test process.
 """
@@ -219,8 +222,29 @@ _CHILD = textwrap.dedent(
         srv.shutdown()
     for name in ("compaction", "compaction.service", "compaction.events", "compaction.cleaner",
                  "compaction.__main__", "freshness.follower", "freshness.__main__",
-                 "streaming.db_sync", "fleet.autoscale"):
+                 "streaming.db_sync", "fleet.autoscale", "service._flight_sql_pb2",
+                 "service.flight_sql", "service.sigv4", "service.s3_upstream", "service.azure",
+                 "service.storage_proxy", "service.console"):
         assert f"lakesoul_tpu_torch.{name}" in mods, name
+    from lakesoul_tpu_torch.service import FlightSqlClient, LakeSoulFlightSqlServer
+    from lakesoul_tpu_torch.service.console import Console
+    from lakesoul_tpu_torch.service.storage_proxy import ProxyStorageClient, StorageProxy
+    fsql = LakeSoulFlightSqlServer(cat, "grpc://127.0.0.1:0", device="cpu")
+    fc = FlightSqlClient(f"grpc://127.0.0.1:{fsql.port}")
+    assert fc.execute("SELECT count(*) AS c FROM t").column("c").to_pylist() == [50]
+    txn = fc.begin_transaction()
+    assert fc.ingest("t", pa.table({"id": np.arange(50, 53), "v": np.zeros(3)}),
+                     transaction_id=txn) == 3
+    fc.commit(txn)
+    assert Console(cat, device="cpu").execute("count t") == "53"
+    fsql.shutdown()
+    proxy = StorageProxy(cat)
+    proxy.start()
+    pc = ProxyStorageClient(f"http://127.0.0.1:{proxy.port}")
+    pc.put("default/t/probe.bin", b"probe")
+    assert pc.get("default/t/probe.bin", range_header="bytes=1-3") == b"rob"
+    assert ("default/t/probe.bin", 5) in pc.list_objects("default/t")
+    proxy.stop()
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

@@ -286,3 +286,38 @@ def test_call_build_vector_index_and_rollback_use_the_port(tmp_path):
     if not torch.cuda.is_available():  # device=None is the card, never the CPU
         with pytest.raises(ConfigError, match="CUDA"):
             SqlSession(cat).execute("CALL build_vector_index('emb', 'v')")
+
+
+def test_aggregates_sum_in_one_order(tmp_path):
+    """``GROUP BY`` aggregates and ``DISTINCT`` run pyarrow's hash aggregate
+    on one thread: the threaded one merges per-thread partial sums in the
+    order the threads finish, so the same statement over the same 20M-row
+    table gave ``avg`` values a few ulp apart from run to run on the card's
+    8-core host (the reference's executor, ``lakesoul_tpu/sql/executor.py``
+    ``group_by(...).aggregate``, still does).  Here the answer is the
+    sequential aggregate's, bit for bit, on every run and with 8 threads."""
+    cat = PORT.LakeSoulCatalog(str(tmp_path))
+    rng = np.random.default_rng(5)
+    n = 64 * 4096
+    # magnitudes spread over 16 decades: the sum depends on its order
+    v = rng.normal(size=n) * 10.0 ** rng.integers(-8, 8, n)
+    t = cat.create_table("agg", pa.schema([("k", pa.int64()), ("v", pa.float64())]))
+    for lo in range(0, n, 4096):  # one file, one batch each: many chunks
+        t.write_arrow(pa.table({"k": np.arange(lo, lo + 4096) % 3, "v": v[lo:lo + 4096]}))
+    q = "SELECT k, avg(v) AS m, sum(v) AS s, count(*) AS n FROM agg GROUP BY k ORDER BY k"
+    held = pa.cpu_count()
+    pa.set_cpu_count(8)
+    try:
+        s = SqlSession(cat, device="cpu")
+        outs = [s.execute(q) for _ in range(4)]
+        rows = t.scan().to_arrow()
+    finally:
+        pa.set_cpu_count(held)
+    want = rows.group_by("k", use_threads=False).aggregate(
+        [("v", "mean"), ("v", "sum"), ("k", "count")]).sort_by("k")
+    for out in outs:
+        assert out.column("m").to_pylist() == want.column("v_mean").to_pylist()
+        assert out.column("s").to_pylist() == want.column("v_sum").to_pylist()
+        assert out.column("n").to_pylist() == want.column("k_count").to_pylist()
+    distinct = s.execute("SELECT DISTINCT k FROM agg").column("k").to_pylist()
+    assert distinct == [0, 1, 2]  # first-seen order, as the rows came
