@@ -267,8 +267,17 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              and the ranged GETs again.  GB/s direct and through the
              upstream.
 11c.3 console — ``python -m lakesoul_tpu_torch.service.console -w WH -c
-             "count bench"`` prints ``count_rows()``; ``-c lint`` the
-             not-ported error.
+             "count bench"`` prints ``count_rows()``; ``-c lint`` the clean
+             line, exit 0.
+11c.4 lint — three ``python -m lakesoul_tpu_torch.analysis`` children,
+             started with the console's: ``--format sarif`` over the port
+             exits 0 with a SARIF 2.1.0 log of 35 rules and no result; over a
+             module seeded with a bare ``threading.Thread(...).start()`` and
+             a ``subprocess.Popen(...)`` it exits 1 with exactly
+             ``raw-thread`` and ``raw-process`` on those lines; ``--rule
+             nosuch`` exits 2.  Files linted, rules, findings, the lint's
+             own wall seconds (``lint_seconds``; it runs beside
+             ``flight_sql``, so the phase's ``seconds`` is what it adds).
 11d. scanplane — on the loader's table, ``python -m
              lakesoul_tpu_torch.scanplane service --workers 2`` as a child
              (its spool on ``/dev/shm`` when ``df`` shows room for the
@@ -450,7 +459,14 @@ FSQL_SELECT = "SELECT id, f0, f1, label FROM bench WHERE f1 > 1.9 ORDER BY id"
 FSQL_PREPARED = "SELECT id, f0, label FROM bench WHERE id >= ? AND id < ? ORDER BY id"
 FSQL_BOUNDS = ((1_000_000, 1_400_000), (15_000_000, 15_250_000))
 PROXY_RANGE, PROXY_MP_BYTES, PROXY_MP_PARTS = 8 << 20, 64 << 20, 4
-CONSOLE_LINT = "error: ConfigError: lint (analysis/) is not ported yet"
+CONSOLE_LINT = "lint clean: no unsuppressed findings"
+# the lint phase's seeded module: one bare thread and one bare child process,
+# each a finding on its own line (LINT_SEEDED_LINES)
+LINT_SEEDED = ("import subprocess\nimport threading\n\n\ndef spawn():\n"
+               "    threading.Thread(target=print).start()\n"
+               "    return subprocess.Popen([\"true\"])\n")
+LINT_SEEDED_LINES = {("raw-thread", 6), ("raw-process", 7)}
+LINT_RULES = 35
 SQL_FILTER = "f0 > 0.5 AND label = 1"
 SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
                 "ORDER BY label")
@@ -4069,27 +4085,54 @@ def phase_storage_proxy(L, t, kind: str) -> dict:
 
 def start_console(t) -> dict:
     """``python -m lakesoul_tpu_torch.service.console -w WH -c ...`` for
-    ``count bench`` and ``lint``, started together; they boot beside the
-    Flight SQL and proxy phases and :func:`phase_console` reads them."""
+    ``count bench`` and ``lint``, and the lint phase's three ``python -m
+    lakesoul_tpu_torch.analysis`` children, started together; they run
+    beside the Flight SQL and proxy phases, and :func:`phase_console` and
+    :func:`phase_lint` read them.  The lint children are each read by a
+    thread that notes when its child ended: their ``seconds`` are their own."""
     started = time.perf_counter()
     procs = {line: subprocess.Popen(
         [sys.executable, "-m", "lakesoul_tpu_torch.service.console", "-w", t.catalog.warehouse,
          "-c", line, *card_default()], env=child_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for line in ("count bench", "lint")}
-    return {"started": started, "procs": procs}
+    seeded_dir = tempfile.mkdtemp(prefix="lakesoul-lint-")
+    seeded = os.path.join(seeded_dir, "seeded.py")
+    with open(seeded, "w") as f:
+        f.write(LINT_SEEDED)
+    lint = {}
+    for name, args in (("port_sarif", ["--format", "sarif"]),
+                       ("seeded", [seeded, "--no-baseline", "--format", "json"]),
+                       ("unknown_rule", ["--rule", "nosuch"])):
+        proc = subprocess.Popen([sys.executable, "-m", "lakesoul_tpu_torch.analysis", *args],
+                                env=child_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        run = {"proc": proc, "started": time.perf_counter()}
+
+        def read(run=run):
+            run["out"], run["err"] = run["proc"].communicate()
+            run["seconds"] = time.perf_counter() - run["started"]
+
+        run["reader"] = threading.Thread(target=read, daemon=True)
+        run["reader"].start()
+        lint[name] = run
+    return {"started": started, "procs": procs, "lint": lint, "seeded_dir": seeded_dir}
 
 
 def kill_console(console: dict) -> None:
-    for proc in console["procs"].values():
+    runs = [*console["procs"].values(), *(r["proc"] for r in console["lint"].values())]
+    for proc in runs:
         if proc.poll() is None:
             proc.kill()
         proc.wait()
+    for run in console["lint"].values():
+        run["reader"].join()
+    shutil.rmtree(console["seeded_dir"], ignore_errors=True)
 
 
 @timed_phase
 def phase_console(console: dict, count: int, kind: str) -> dict:
     """The console children of :func:`start_console`: ``count bench`` prints
-    ``count_rows()``; ``lint`` prints the not-ported error; each exits 0."""
+    ``count_rows()``; ``lint`` prints the clean line; each exits 0."""
     outs = {}
     for line, proc in console["procs"].items():
         try:
@@ -4107,6 +4150,50 @@ def phase_console(console: dict, count: int, kind: str) -> dict:
     require(outs["lint"]["stdout"] == CONSOLE_LINT + "\n",
             f"console lint printed {outs['lint']['stdout']!r}")
     return outs
+
+
+@timed_phase
+def phase_lint(console: dict, kind: str) -> dict:
+    """The lint children of :func:`start_console`: the port lints clean
+    under SARIF with all its rules, the seeded module gives exactly its two
+    findings (so the clean answer is not a lint that linted nothing), and an
+    unknown rule is an analyser error."""
+    from lakesoul_tpu_torch.analysis.engine import _iter_py_files, package_root
+
+    runs = console["lint"]
+    for run in runs.values():
+        run["reader"].join(SERVICE_START_S)
+        if run["reader"].is_alive():
+            run["proc"].kill()
+            run["reader"].join()
+    exits = {name: run["proc"].returncode for name, run in runs.items()}
+    seconds = {name: run["seconds"] for name, run in runs.items()}
+    try:
+        sarif = json.loads(runs["port_sarif"]["out"])
+        (sarif_run,) = sarif["runs"]
+        rules = [r["id"] for r in sarif_run["tool"]["driver"]["rules"]]
+        results = sarif_run["results"]
+    except (ValueError, KeyError, TypeError):
+        sarif, rules, results = {}, [], None
+    try:
+        seeded = {(f["rule"], f["line"]) for f in json.loads(runs["seeded"]["out"])}
+    except (ValueError, KeyError, TypeError):
+        seeded = None
+    files = sum(1 for _ in _iter_py_files([package_root()]))
+    emit("lint", device_kind=kind, files_linted=files, rules=len(rules),
+         findings=None if results is None else len(results),
+         seeded_findings=sorted(seeded) if seeded is not None else None,
+         exits=exits, lint_seconds=seconds["port_sarif"], child_seconds=seconds,
+         stderr_tail={name: run["err"][-2000:] for name, run in runs.items()})
+    require(exits["port_sarif"] == 0, f"the port's lint exited {exits['port_sarif']}")
+    require(sarif.get("version") == "2.1.0" and len(rules) == len(set(rules)) == LINT_RULES,
+            f"the port's SARIF log is version {sarif.get('version')!r} with {len(rules)} rules")
+    require(results == [], f"the port's lint reported {results!r}")
+    require(exits["seeded"] == 1, f"the seeded module's lint exited {exits['seeded']}")
+    require(seeded == LINT_SEEDED_LINES, f"the seeded module's findings are {seeded!r}")
+    require(exits["unknown_rule"] == 2 and "engine error" in runs["unknown_rule"]["err"],
+            f"--rule nosuch exited {exits['unknown_rule']}")
+    return {"exits": exits, "seconds": seconds, "files": files, "rules": len(rules)}
 
 
 def proc_children(pid: int) -> list:
@@ -4736,7 +4823,11 @@ def phase_loader(torch, M, L, kind: str) -> dict:
         except BaseException:
             kill_console(console)
             raise
-        phase_console(console, count, kind)
+        try:
+            phase_console(console, count, kind)
+            phase_lint(console, kind)
+        finally:
+            kill_console(console)
         plane = phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"],
                                 kind)
         # the scan plane is the last phase to read the table as written

@@ -510,10 +510,16 @@ def _numeric_leaf(x, name: str):
 
 
 def _cpu_leaf(x, name: str) -> torch.Tensor:
-    """Delivery to the CPU: the tensor aliases the collate buffer."""
+    """Delivery to the CPU: the tensor aliases the collate buffer — or a
+    copy of it when the buffer is read-only (an aligned window's Arrow
+    views, a mapped spool segment): a torch tensor cannot be read-only, and
+    an in-place op on such an alias would write into the table's decoded
+    bytes or fault on the spool's mapping."""
     x = _numeric_leaf(x, name)
     if isinstance(x, torch.Tensor):
         return x
+    if not x.flags.writeable:
+        return torch.from_numpy(np.array(x))
     try:
         return torch.from_numpy(x)
     except ValueError:  # negative strides: torch cannot view them

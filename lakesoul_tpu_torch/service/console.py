@@ -7,8 +7,8 @@ compact, clean — without an engine.  Usable as a REPL
 (``python -m lakesoul_tpu_torch.service.console -w /path/wh``) or one-shot
 (``... -c "scan mytable limit 5"``).  Its SQL runs on the CUDA card unless
 given ``--device cpu`` (a ``CALL build_vector_index`` builds there); ``lint``
-needs the analysis package, which the port does not have yet, and answers
-with that error."""
+runs the port's lakelint (``lakesoul_tpu_torch.analysis``) and prints what its
+CLI prints."""
 
 from __future__ import annotations
 
@@ -244,11 +244,41 @@ class Console:
         return "\n".join(lines)
 
     def cmd_lint(self, args) -> str:
-        """lakelint over the package needs the analysis package
-        (``lakesoul_tpu/analysis/``), which is not ported yet."""
-        from lakesoul_tpu_torch.errors import ConfigError
+        """Run lakelint (the project-native static analysis) over the
+        installed package with the checked-in baseline — same checks, same
+        ``--rule``/``--format`` filters and the same bytes as
+        ``python -m lakesoul_tpu_torch.analysis`` prints on its standard
+        output; stale baseline entries go to standard error, as there.
 
-        raise ConfigError("lint (analysis/) is not ported yet")
+        Usage: ``lint [--rule ID]... [--format text|json|sarif]``"""
+        from lakesoul_tpu_torch.analysis import Baseline, EngineError, run
+        from lakesoul_tpu_torch.analysis.__main__ import (
+            FORMATS, _select_rules, render, report_stale,
+        )
+        from lakesoul_tpu_torch.analysis.engine import default_baseline_path
+
+        rule_ids: list[str] = []
+        fmt = "text"
+        it = iter(args)
+        for tok in it:
+            if tok == "--rule":
+                rule_ids.append(next(it, ""))
+            elif tok == "--format":
+                fmt = next(it, "text")
+            else:
+                return f"lint: unknown argument {tok!r}"
+        if fmt not in FORMATS:
+            return f"lint: unknown format {fmt!r} (choose from {'/'.join(FORMATS)})"
+        try:
+            rules = _select_rules(rule_ids or None)
+            findings, baseline = run(
+                rules=rules, baseline=Baseline.load(default_baseline_path())
+            )
+        except EngineError as e:
+            return f"lint: engine error: {e}"
+        if not rule_ids:  # a rule filter makes other entries look stale
+            report_stale(baseline)
+        return render(findings, rules, fmt)
 
     def cmd_drop(self, args) -> str:
         self.catalog.drop_table(args[0])

@@ -10,9 +10,9 @@ cases, under the reference's case names).
   ``extern "C"`` entry point in ``csrc/`` it launches;
 - :data:`REFERENCE_KERNELS` — the reference's kernels as a static list.
   The port cannot enumerate the reference's ``pl.pallas_call`` sites itself
-  (the analysis tooling is not ported), so a test holds this list against
-  the reference's enumeration, and ``run_smoke`` reports any kernel of it
-  that no case covers (``uncovered``);
+  (the device pack of its analysis is not ported), so a test holds this
+  list against the reference's enumeration, and ``run_smoke`` reports any
+  kernel of it that no case covers (``uncovered``);
 - :func:`run_smoke` — on the card (``device=None``), each case launches its
   kernels on seeded inputs (the reference's case inputs) and holds them
   against their plain versions on the same inputs: ``pass``, or ``fail``
@@ -103,7 +103,7 @@ def _estimate_tables(rng, n: int, per_cluster: tuple, nlist: int = 4):
 
 
 def _hold(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.cpu().numpy(), want.cpu().numpy()
+    got, want = got.cpu().numpy(), want.cpu().numpy()  # lakelint: ignore[replay-host-roundtrip] verification readback: the kernel's result held against its plain version on the host
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     fin = np.isfinite(want)
     return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0

@@ -4,8 +4,8 @@ reference's (``lakesoul_tpu/service/console.py``).
 - The reference's console tests (in ``test_gateway.py``, ``test_obs.py``,
   ``test_obs_fleet.py``, ``test_sql.py``, ``test_analysis.py`` and
   ``test_analysis_clean.py``), each with a counterpart here, on the CPU.
-  ``lint`` needs the analysis package, which the port does not have yet:
-  it answers with that error, as the console prints any error.
+  ``lint`` runs the port's lakelint and prints what its CLI
+  (``python -m lakesoul_tpu_torch.analysis``) prints for the same filters.
 - On one warehouse the two consoles print the same thing for the same
   commands and statements.
 - The command line: ``-c`` runs one command, the REPL reads standard input,
@@ -32,7 +32,7 @@ from lakesoul_tpu_torch.service.console import Console
 
 SCHEMA = pa.schema([("id", pa.int64()), ("v", pa.float64())])
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LINT_ERROR = "error: ConfigError: lint (analysis/) is not ported yet"
+LINT_CLEAN = "lint clean: no unsuppressed findings"
 
 
 def _console(tmp_warehouse):
@@ -133,13 +133,41 @@ def test_assets_clean_cache_commands(tmp_warehouse):
     assert "hits=" in c.execute("cache-stats")
 
 
-@pytest.mark.parametrize("line", ["lint", "lint --rule raw-thread", "lint --format json"])
+LINT_LINES = ["lint", "lint --rule raw-thread", "lint --format json", "lint --format sarif"]
+
+
+@pytest.mark.parametrize("line", LINT_LINES)
 def test_lint_answers_that_the_analysis_package_is_not_ported(tmp_warehouse, line):
     """The counterparts of the reference's ``test_console_lint_command`` and
-    ``test_console_lint_mirrors_cli_filters``."""
-    c = _console(tmp_warehouse)
-    assert c.execute(line) == LINT_ERROR
+    ``test_console_lint_mirrors_cli_filters``: the console's ``lint`` prints
+    what the port's CLI prints for the same filters, byte for byte, and the
+    package lints clean.  The CLI lints beside the console."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("LAKESOUL_", "JAX_"))}
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "lakesoul_tpu_torch.analysis", *line.split()[1:]], cwd=ROOT,
+        env={**env, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        c = _console(tmp_warehouse)
+        got = c.execute(line)
+        out, err = cli.communicate(timeout=240)
+    except BaseException:
+        cli.kill()
+        cli.communicate()
+        raise
+    assert cli.returncode == 0, err
+    assert got + "\n" == out and err == ""
+    if "--format" in line:
+        payload = json.loads(got)
+        if "sarif" in line:
+            assert payload["version"] == "2.1.0" and payload["runs"][0]["results"] == []
+            assert len(payload["runs"][0]["tool"]["driver"]["rules"]) == 35
+        else:
+            assert payload == []
+    else:
+        assert got == LINT_CLEAN
     assert "lint [--rule ID]" in c.execute("help")
+    assert c.execute("lint --rule nope").startswith("lint: engine error")
 
 
 def test_both_consoles_print_the_same(tmp_path):
@@ -195,7 +223,7 @@ def test_console_cli(tmp_warehouse, capsys, monkeypatch):
         env={**env, "PYTHONPATH": ROOT})
     assert out.returncode == 0 and out.stdout == "7\n", out.stderr
     assert main(["-w", wh, "-c", "lint", "--device", "cpu"]) == 0
-    assert capsys.readouterr().out == LINT_ERROR + "\n"
+    assert capsys.readouterr().out == LINT_CLEAN + "\n"
     monkeypatch.setattr(sys, "stdin", io.StringIO("tables\ncount t\nquit\n"))
     assert main(["-w", wh, "--device", "cpu"]) == 0
     assert capsys.readouterr().out == (

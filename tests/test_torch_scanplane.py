@@ -430,6 +430,46 @@ def test_to_torch_iter_via_the_plane_is_the_local_iterator(table, plane):
     assert tagged, "the workers' stages were not merged into the client's registry"
 
 
+def _spool_digest(spool_dir) -> dict:
+    out = {}
+    for dirpath, _, files in os.walk(spool_dir):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, spool_dir)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+@pytest.mark.parametrize("route", ["local", "spool"])
+def test_cpu_tensors_over_read_only_buffers_are_writable(table, plane, route):
+    """An aligned window hands out Arrow's read-only views and a spool window
+    a mapped segment's: each CPU tensor is a copy of them, so torch raises no
+    "not writable" warning, and an in-place ``add_`` on every delivered
+    tensor leaves the spool and the table as they were."""
+    import warnings
+
+    _, _, t = table
+    scan = t.scan().batch_size(2048)
+    source = scan if route == "local" else scan.via_scanplane(plane.location)
+    want = _tensor_batches(scan.to_torch_iter(device="cpu", drop_remainder=False))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*not writable.*")
+        got = list(source.to_torch_iter(device="cpu", drop_remainder=False))
+    spool_before = _spool_digest(plane.spool)
+    assert len(got) == len(want) > 1
+    assert spool_before or route == "local"
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k, v in g.items():
+            assert v.numpy().tobytes() == w[k].tobytes()
+            v.add_(1)
+    assert _spool_digest(plane.spool) == spool_before
+    again = _tensor_batches(source.to_torch_iter(device="cpu", drop_remainder=False))
+    assert len(again) == len(want)
+    for b, w in zip(again, want):
+        assert {k: v.tobytes() for k, v in b.items()} == {k: v.tobytes() for k, v in w.items()}
+
+
 def test_to_batches_to_arrow_limit_and_the_torch_adapter_route_remote(table, plane):
     _, _, t = table
     scan = t.scan().batch_size(4096)
