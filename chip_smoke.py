@@ -53,7 +53,10 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              names and on their seeded inputs, each launching the port's
              kernels (all seven ``extern "C"`` entry points) against their
              plain versions (rtol = atol = 2e-4, the reference's case
-             tolerance); every case must pass, no reference kernel uncovered.
+             tolerance); every case must pass, no reference kernel uncovered;
+             and the register's entry points must be the ``extern "C"``
+             functions that the lint's device index reads from ``csrc/``,
+             each with its binding (``register_problems`` empty).
 4. slice   — builds a 1,000,000 x 512 index (nlist 1024, 1-bit, fht,
              raw vectors kept) from a seeded, L2-normalized mixture of 1024
              gaussians, then batch_search, single search, per-cluster
@@ -107,8 +110,9 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              shard, 1 bit, fht, raw kept), 64 ``vector_search`` queries at
              nprobe 256 (``packed_dot``'s product mode, counted) and
              ``scan().vector_search(...).to_arrow()`` on 8; recall@10 >= 0.5
-             against ``bruteforce_topk``, every query's ids = the same
-             table searched with ``device="cpu"``, the scans' rows = the ids with
+             against ``bruteforce_topk``, the first 16 queries' ids = the
+             same table searched with ``device="cpu"`` (all 64 before the
+             detectors phase came), the scans' rows = the ids with
              the corpus's vectors; build seconds, search p50 / p99 (the
              searches share one ``TableVectorIndex``, so they run with the
              shards open; the first, which opens them, is timed apart).
@@ -271,13 +275,41 @@ any phase fails.  Each phase prints one JSON line carrying its wall
              line, exit 0.
 11c.4 lint — three ``python -m lakesoul_tpu_torch.analysis`` children,
              started with the console's: ``--format sarif`` over the port
-             exits 0 with a SARIF 2.1.0 log of 35 rules and no result; over a
-             module seeded with a bare ``threading.Thread(...).start()`` and
-             a ``subprocess.Popen(...)`` it exits 1 with exactly
-             ``raw-thread`` and ``raw-process`` on those lines; ``--rule
+             exits 0 with a SARIF 2.1.0 log of 40 rules and no result; over a
+             module seeded with a bare ``threading.Thread(...).start()``, a
+             ``subprocess.Popen(...)`` and a ``ctypes`` binding one argument
+             short of the ``extern "C"`` prototype in a ``csrc/seeded.cu``
+             beside it, it exits 1 with exactly ``raw-thread``,
+             ``raw-process`` and ``kernel-abi`` on those lines; ``--rule
              nosuch`` exits 2.  Files linted, rules, findings, the lint's
              own wall seconds (``lint_seconds``; it runs beside
              ``flight_sql``, so the phase's ``seconds`` is what it adds).
+11c.5 detectors — ``chip_smoke.py --detectors DIR``, a child started with
+             the lint's, with ``LAKESOUL_LOCKCHECK``, ``_RACECHECK``,
+             ``_LEAKCHECK``, ``_FSCHECK``, ``_TXNCHECK`` and ``_TRACECHECK``
+             set; it enables all six detectors and, inside one leakcheck
+             scope: builds the three kernel sources afresh into DIR (three
+             threads loading at once: tracecheck counts one ``nvcc`` build
+             per source), writes the loader's schema at 2M rows in 4 buckets
+             with a 5 % upsert wave, reads one epoch into the MLP step with
+             the pinned reuse ring armed (racecheck's canary checks each
+             slot's copy event), holds a one-rank NCCL group (its
+             ``/dev/shm`` descriptors recorded, none left once destroyed),
+             runs 8 threads searching one ``AnnEndpoint`` over a 100k x 128
+             index in bursts of 1-64 plus one resident single search a burst
+             (``packed_dot`` and ``packed_dot_batch`` launch; each searched
+             row finds itself), one ``LeasedCompactionService`` pass beside a
+             writer of 4 commits, and one scan-plane session with one worker
+             read on the card; then ``fscheck.replay(device)`` over its
+             spool, manifest and obs docs and ``txncheck.replay()``.  Every
+             detector records 0 violations, every hot function stays within
+             its signature budget, rows = ``count_rows()`` each time.  Then
+             one seeded fault a detector, each from a clean slate and each
+             recorded exactly once: an ABBA lock cycle on the port's pool,
+             an unguarded cross-thread write, an unjoined thread, a rename
+             of an unfsynced ``manifest.json``, a READ COMMITTED lost update
+             and a shape thrash past budget.  The parent reads its one line
+             after ``lint``; the phase's ``seconds`` is what it adds.
 11d. scanplane — on the loader's table, ``python -m
              lakesoul_tpu_torch.scanplane service --workers 2`` as a child
              (its spool on ``/dev/shm`` when ``df`` shows room for the
@@ -460,13 +492,34 @@ FSQL_PREPARED = "SELECT id, f0, label FROM bench WHERE id >= ? AND id < ? ORDER 
 FSQL_BOUNDS = ((1_000_000, 1_400_000), (15_000_000, 15_250_000))
 PROXY_RANGE, PROXY_MP_BYTES, PROXY_MP_PARTS = 8 << 20, 64 << 20, 4
 CONSOLE_LINT = "lint clean: no unsuppressed findings"
-# the lint phase's seeded module: one bare thread and one bare child process,
-# each a finding on its own line (LINT_SEEDED_LINES)
-LINT_SEEDED = ("import subprocess\nimport threading\n\n\ndef spawn():\n"
+# the lint phase's seeded module: one bare thread, one bare child process and
+# a ctypes binding one argument short of its C entry point (LINT_SEEDED_CU,
+# written beside it as csrc/seeded.cu), each a finding on its own line
+# (LINT_SEEDED_LINES)
+LINT_SEEDED = ("import ctypes\nimport subprocess\nimport threading\n\n"
+               "from lakesoul_tpu_torch import _build\n\n\ndef spawn():\n"
                "    threading.Thread(target=print).start()\n"
-               "    return subprocess.Popen([\"true\"])\n")
-LINT_SEEDED_LINES = {("raw-thread", 6), ("raw-process", 7)}
-LINT_RULES = 35
+               "    return subprocess.Popen([\"true\"])\n\n\n"
+               "SEEDED = _build.entry(_build.load(\"seeded\"), \"ls_seeded\", "
+               "[ctypes.c_void_p, ctypes.c_int64])\n")
+LINT_SEEDED_CU = ('extern "C" {\n\nint ls_seeded(const void* x, int64_t n, int d, void* stream) '
+                  "{\n  return 0;\n}\n\n}  // extern \"C\"\n")
+LINT_SEEDED_LINES = {("raw-thread", 9), ("raw-process", 10), ("kernel-abi", 13)}
+LINT_RULES = 40
+# the detectors phase (``chip_smoke.py --detectors DIR``, a child with the six
+# LAKESOUL_*CHECK variables set): the loader's schema at 2M rows in 4 buckets
+# with a 5 % upsert wave, one ring-armed epoch at this batch; 8 threads
+# searching one AnnEndpoint over a 100k x 128 index in bursts of these sizes;
+# a compaction pass beside a writer of these commits; the one-worker scan
+# plane over these columns; the tracecheck thrash's distinct row counts
+DET_ROWS, DET_BUCKETS, DET_CHUNK, DET_BATCH = 2_000_000, 4, 250_000, 262_144
+DET_ANN_ROWS, DET_ANN_DIM, DET_ANN_NLIST, DET_ANN_NPROBE = 100_000, 128, 64, 16
+DET_ANN_THREADS, DET_ANN_BURSTS = 8, (1, 3, 8, 17, 32, 64)
+DET_WRITER_COMMITS, DET_WRITER_ROWS, DET_VERSION_GAP = 4, 10_000, 3
+DET_PLANE_COLUMNS, DET_THRASH = ["id", "f0", "label"], 9
+DET_VARS = ("LAKESOUL_LOCKCHECK", "LAKESOUL_RACECHECK", "LAKESOUL_LEAKCHECK",
+            "LAKESOUL_FSCHECK", "LAKESOUL_TXNCHECK", "LAKESOUL_TRACECHECK")
+DET_TIMEOUT_S = 300
 SQL_FILTER = "f0 > 0.5 AND label = 1"
 SQL_GROUP_BY = ("SELECT label, count(*) AS n, avg(f0) AS mean_f0 FROM bench GROUP BY label "
                 "ORDER BY label")
@@ -487,6 +540,11 @@ VT_QUERIES, VT_SCAN_QUERIES = 64, 8
 # between its copies (four took 1.3x less wall time than one on an 8-core
 # host, answers equal)
 VT_CPU_THREADS = 4
+# ... and how many of the VT_QUERIES it holds there: all but the 9 whose CPU
+# searches (~2.0 s each on an 8-core host) pay for the detectors phase's
+# time past the +10 s it may add (26.5 s: its own 10.4 s plus 16.1 s of
+# flight_sql and storage_proxy beside its child, measured in one call)
+VT_CPU_HOLD = 55
 # name -> (source, TPU kernel body it replaces, the PyTorch yardstick timed beside it)
 KERNELS = {
     "packed_dot_batch": ("lakesoul_tpu_torch/csrc/packed_dot.cu",
@@ -1039,15 +1097,29 @@ def phase_register(kind: str) -> dict:
     and holds them against their plain versions; every case must pass and
     no reference kernel may be uncovered.  Its launches count on no path:
     each path sets the counts to 0 before it is driven."""
-    from lakesoul_tpu_torch.tensorplane.smoke import run_smoke
+    from lakesoul_tpu_torch.analysis.engine import package_root
+    from lakesoul_tpu_torch.analysis.rules.device import (BINDING_TEXT, index_tree,
+                                                          register_problems)
+    from lakesoul_tpu_torch.tensorplane.smoke import run_smoke, smoke_cases
 
     t0 = time.perf_counter()
     report = run_smoke()
-    rec = {"device_kind": kind, "seconds": time.perf_counter() - t0, **report}
+    # the register's entry points against the lint's device index of csrc/
+    idx = index_tree(package_root(), text_filter=BINDING_TEXT)
+    registered = sorted({(p.entry_point, os.path.basename(p.source))
+                         for case in smoke_cases() for p in case.ports})
+    indexed = sorted((name, os.path.basename(e.source))
+                     for name, entries in idx.entries.items() for e in entries)
+    problems = register_problems(idx)
+    rec = {"device_kind": kind, "seconds": time.perf_counter() - t0, **report,
+           "entry_points": {"registered": registered, "indexed": indexed,
+                            "problems": problems}}
     emit("register", **rec)
     require(report["ok"] and all(c["status"] == "pass" for c in report["cases"])
             and not report["kernel_enumeration"]["uncovered"],
             f"the kernel register failed on the card: {report['cases']}")
+    require(registered == indexed and not problems,
+            f"the register's entry points disagree with csrc/: {registered} {indexed} {problems}")
     return rec
 
 
@@ -2965,9 +3037,9 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
     kept), VT_QUERIES ``vector_search`` queries at nprobe 256 and
     ``scan().vector_search(...).to_arrow()`` on VT_SCAN_QUERIES of them,
     with the ``bruteforce_topk`` oracle in the counted path.  Requires
-    recall@10 >= 0.5, every query's ids = the same table searched with
-    ``device="cpu"`` (ties aside), and each scan's rows = its query's ids
-    with the corpus's vectors."""
+    recall@10 >= 0.5, the first VT_CPU_HOLD queries' ids = the same table
+    searched with ``device="cpu"`` (ties aside), and each scan's rows = its
+    query's ids with the corpus's vectors."""
     import pyarrow as pa
 
     from lakesoul_tpu_torch.vector.builder import TableVectorIndex
@@ -3040,11 +3112,11 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
 
             cpu = [on_cpu(qs_np[0])]  # opens the CPU shards, then VT_CPU_THREADS at a time
             with ThreadPoolExecutor(VT_CPU_THREADS) as pool:
-                cpu += list(pool.map(on_cpu, qs_np[1:]))
+                cpu += list(pool.map(on_cpu, qs_np[1:VT_CPU_HOLD]))
         cpu_s = time.perf_counter() - t0
         held = sum(same_topk(c[0], c[1], g[0], g[1]) for c, g in zip(cpu, got))
-        require(held == VT_QUERIES, f"the table index on the card != on the CPU on "
-                                    f"{VT_QUERIES - held} of {VT_QUERIES} queries")
+        require(held == VT_CPU_HOLD, f"the table index on the card != on the CPU on "
+                                     f"{VT_CPU_HOLD - held} of {VT_CPU_HOLD} queries")
         gateway = phase_gateway_vector(K, R, t, qs_np, got, lat, kind)
         flight_sql = phase_flight_sql_vector(K, R, t, qs_np, got, kind)
     finally:
@@ -3060,7 +3132,7 @@ def phase_vector_table(torch, K, R, L, kind: str) -> dict:
            "search_p99_ms": float(np.percentile(lat_ms, 99)),
            "recall_at_10": recall, "recall_floor": RECALL_FLOOR,
            "scan_vector_search_held": f"{len(scans)}/{len(scans)}",
-           "card_equals_cpu": f"{held}/{VT_QUERIES}", "cpu_search_s": cpu_s,
+           "card_equals_cpu": f"{held}/{VT_CPU_HOLD}", "cpu_search_s": cpu_s,
            "cpu_search_threads": VT_CPU_THREADS,
            "launches": launches}
     emit("vector_table", **rec)
@@ -4099,6 +4171,9 @@ def start_console(t) -> dict:
     seeded = os.path.join(seeded_dir, "seeded.py")
     with open(seeded, "w") as f:
         f.write(LINT_SEEDED)
+    os.makedirs(os.path.join(seeded_dir, "csrc"))
+    with open(os.path.join(seeded_dir, "csrc", "seeded.cu"), "w") as f:
+        f.write(LINT_SEEDED_CU)
     lint = {}
     for name, args in (("port_sarif", ["--format", "sarif"]),
                        ("seeded", [seeded, "--no-baseline", "--format", "json"]),
@@ -4155,9 +4230,10 @@ def phase_console(console: dict, count: int, kind: str) -> dict:
 @timed_phase
 def phase_lint(console: dict, kind: str) -> dict:
     """The lint children of :func:`start_console`: the port lints clean
-    under SARIF with all its rules, the seeded module gives exactly its two
-    findings (so the clean answer is not a lint that linted nothing), and an
-    unknown rule is an analyser error."""
+    under SARIF with all its 40 rules, the seeded module gives exactly its
+    three findings, the device pack's ``kernel-abi`` among them (so the clean
+    answer is not a lint that linted nothing), and an unknown rule is an
+    analyser error."""
     from lakesoul_tpu_torch.analysis.engine import _iter_py_files, package_root
 
     runs = console["lint"]
@@ -4194,6 +4270,429 @@ def phase_lint(console: dict, kind: str) -> dict:
     require(exits["unknown_rule"] == 2 and "engine error" in runs["unknown_rule"]["err"],
             f"--rule nosuch exited {exits['unknown_rule']}")
     return {"exits": exits, "seconds": seconds, "files": files, "rules": len(rules)}
+
+
+class DetCounter:
+    """The racecheck seed: a field two threads write with no lock."""
+
+    def __init__(self):
+        self.value = 0
+
+    def bump(self, n: int) -> None:
+        for _ in range(n):
+            self.value += 1
+
+
+def shm_fds() -> list:
+    """This process's open ``/dev/shm`` descriptors' targets."""
+    out = []
+    for name in os.listdir("/proc/self/fd"):
+        try:
+            target = os.readlink(f"/proc/self/fd/{name}")
+        except OSError:
+            continue
+        if target.startswith("/dev/shm/"):
+            out.append(target)
+    return sorted(out)
+
+
+def start_detectors() -> dict:
+    """``chip_smoke.py --detectors DIR`` with the six ``LAKESOUL_*CHECK``
+    variables set, started beside the Flight SQL and proxy phases as the
+    lint children are; :func:`phase_detectors` reads it.  A reader thread
+    notes when it ended: its ``seconds`` are its own."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_detectors_")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--detectors", workdir],
+                            env=child_env(**dict.fromkeys(DET_VARS, "1")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    run = {"proc": proc, "started": time.perf_counter(), "workdir": workdir}
+
+    def read():
+        run["out"], run["err"] = proc.communicate()
+        run["seconds"] = time.perf_counter() - run["started"]
+
+    run["reader"] = threading.Thread(target=read, daemon=True)
+    run["reader"].start()
+    return run
+
+
+def kill_detectors(run: dict) -> None:
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+    run["proc"].wait()
+    run["reader"].join()
+    shutil.rmtree(run["workdir"], ignore_errors=True)
+
+
+@timed_phase
+def phase_detectors(run: dict, kind: str) -> dict:
+    """The detectors child (see the module docstring, 11c.5): it exits 0
+    and its line shows 0 violations on the real work, each of the six
+    seeded faults caught exactly once, every kernel wrapper within its
+    signature budget and one build per kernel source."""
+    run["reader"].join(DET_TIMEOUT_S)
+    if run["reader"].is_alive():
+        run["proc"].kill()
+        run["reader"].join()
+    rec = None
+    for line in (run.get("out") or "").splitlines():
+        if line.startswith('{"phase": "detectors"'):
+            rec = json.loads(line)
+    exit_code = run["proc"].returncode
+    emit("detectors", device_kind=kind, exit=exit_code, child_seconds=run.get("seconds"),
+         record=rec, stderr_tail=(run.get("err") or "")[-3000:])
+    require(rec is not None, f"the detectors child printed no record (exit {exit_code})")
+    require(exit_code == 0, f"the detectors child exited {exit_code}: {rec.get('failed')}")
+    require(all(n == 0 for n in rec["real_violations"].values()),
+            f"violations on the real work: {rec['real_violations']} {rec['real_rendered']}")
+    require(set(rec["seeded"]) == set(DET_SEEDED_KINDS) and
+            all(rec["seeded"][name] == [kind] for name, kind in DET_SEEDED_KINDS.items()),
+            f"a seeded fault was not caught exactly once: {rec['seeded']}")
+    require(rec["builds"] == {name: 1 for name in rec["sources"]},
+            f"kernel builds in the child: {rec['builds']}")
+    require(rec["rows"]["epoch"] == rec["rows"]["count_rows"] and
+            rec["rows"]["scanplane"] == rec["rows"]["count_after_writer"] ==
+            rec["rows"]["epoch_after_compaction"],
+            f"rows read != count_rows(): {rec['rows']}")
+    return rec
+
+
+DET_SEEDED_KINDS = {"lockgraph": "lock-cycle", "racecheck": "shared-state-write",
+                    "leakcheck": "thread-leak", "fscheck": "unfsynced-rename",
+                    "txncheck": "lost-update", "tracecheck": "retrace-budget"}
+
+
+def detectors_child(workdir: str) -> int:
+    """``chip_smoke.py --detectors DIR``: the six runtime detectors armed
+    around real work on the card, then one seeded fault each.  Prints one
+    ``{"phase": "detectors", ...}`` line; exits 1 if a check failed."""
+    import datetime
+    from pathlib import Path
+
+    import torch
+
+    if DEVICE == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lakesoul_tpu_torch.analysis import (fscheck, leakcheck, lockgraph, racecheck,
+                                             tracecheck, txncheck)
+
+    dets = {"lockgraph": lockgraph, "racecheck": racecheck, "leakcheck": leakcheck,
+            "fscheck": fscheck, "txncheck": txncheck, "tracecheck": tracecheck}
+    failed = []
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    check(all(m.env_requested() for m in dets.values()), "a LAKESOUL_*CHECK variable is not set")
+    for m in dets.values():
+        m.reset()
+        m.enable()
+    t_start = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    import lakesoul_tpu_torch as L
+    from lakesoul_tpu_torch import _build
+    from lakesoul_tpu_torch import models as M
+    from lakesoul_tpu_torch.vector import kernels as K
+
+    rec = {"device": DEVICE, "sources": list(_build.SOURCES), "seconds_of": {}}
+    timer = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal timer
+        now = time.perf_counter()
+        rec["seconds_of"][name] = now - timer
+        timer = now
+
+    scope = leakcheck.scope("detectors")
+    scope.__enter__()
+    # 1. the kernel libraries, built afresh in this process: three threads
+    # load the three sources at once (each source must build exactly once)
+    loaders = []
+    if on_card:
+        _build.BUILD_DIR = Path(workdir) / "build"
+        loaders = [threading.Thread(target=_build.load, args=(name,), name=f"det-load-{name}")
+                   for name in _build.SOURCES]
+        for th in loaders:
+            th.start()
+    # 2. the loader's table at 2M rows, one epoch into the MLP step with the
+    # pinned reuse ring armed (the canary checks each slot's copy event)
+    cat = L.LakeSoulCatalog(os.path.join(workdir, "wh"))
+    t = cat.create_table("det", loader_schema(), primary_keys=["id"],
+                         hash_bucket_num=DET_BUCKETS, properties={"lakesoul.file_format": "lsf"})
+    for chunk in loader_chunks(DET_ROWS, DET_CHUNK):
+        t.write_arrow(chunk)
+    upserted = loader_upsert_wave(t, SEED + 1, DET_ROWS)
+    count = t.scan().count_rows()
+    lap("table")
+    model = M.MLP(LOADER_FEATURES, hidden=LOADER_HIDDEN, seed=SEED, device=DEVICE)
+    step = M.make_mlp_train_step(model, M.adam(model.parameters(), LOADER_LR), device=DEVICE)
+
+    def epoch() -> tuple:
+        it = t.scan().batch_size(DET_BATCH).to_torch_iter(
+            transform=loader_transform, io_threads=LOADER_IO_THREADS, drop_remainder=False,
+            device=DEVICE)
+        rows, loss = 0, None
+        for b in it:
+            loss = step(b["x"].t(), b["y"])
+            rows += int(b["y"].shape[0])
+        if on_card:
+            torch.cuda.synchronize()
+        return rows, it._ring is not None, bool(torch.isfinite(loss))
+
+    os.environ["LAKESOUL_COLLATE_REUSE"] = "1"
+    try:
+        rows_epoch, ring_armed, finite = epoch()
+    finally:
+        del os.environ["LAKESOUL_COLLATE_REUSE"]
+    check(finite, "a non-finite loss in the epoch")
+    check(ring_armed or not on_card, "the reuse ring did not arm on the card")
+    lap("epoch")
+    # 3. a one-rank process group (NCCL on the card) inside the scope: the
+    # /dev/shm descriptors it holds while alive, none once destroyed
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    ones = torch.ones(4, device=DEVICE)
+    dist.all_reduce(ones)
+    shm_during_group = shm_fds()
+    dist.destroy_process_group()
+    lap("process_group")
+    # 4. one leased compaction pass beside a writer
+    from lakesoul_tpu_torch.compaction.service import LeasedCompactionService
+
+    svc = LeasedCompactionService(cat, service_id="det-compactor", lease_ttl_s=30.0,
+                                  version_gap=DET_VERSION_GAP)
+    written = []
+
+    def writer() -> None:
+        import pyarrow as pa
+
+        for c in range(DET_WRITER_COMMITS):
+            base = DET_ROWS + c * DET_WRITER_ROWS
+            part = next(loader_chunks(DET_WRITER_ROWS, DET_WRITER_ROWS, seed=SEED + 10 + c))
+            ids = pa.array(np.arange(base, base + DET_WRITER_ROWS, dtype=np.int64))
+            t.write_arrow(part.set_column(0, "id", ids))
+            written.append(DET_WRITER_ROWS)
+
+    w = threading.Thread(target=writer, name="det-writer")
+    w.start()
+    outcome = svc.poll_once()
+    w.join()
+    count_after = t.scan().count_rows()
+    check(outcome.get("compacted", 0) >= 1, f"the compaction pass compacted nothing: {outcome}")
+    check(count_after == count + sum(written), f"count_rows {count_after} after the writer")
+    rows_after, _, _ = epoch()
+    lap("compaction")
+    # 5. one scan-plane session with one worker, its rows read on the card,
+    # then the crash-prefix replay of its spool, manifest and obs docs
+    from lakesoul_tpu_torch.obs import FleetPublisher
+    from lakesoul_tpu_torch.scanplane.client import ScanPlaneClient
+    from lakesoul_tpu_torch.scanplane.delivery import ScanPlaneDelivery
+    from lakesoul_tpu_torch.scanplane.worker import ScanPlaneWorker
+    from lakesoul_tpu_torch.service.flight import LakeSoulFlightServer
+
+    spool = os.path.join(workdir, "spool")
+    os.makedirs(spool)
+    server = LakeSoulFlightServer(cat, "grpc://127.0.0.1:0",
+                                  scanplane=ScanPlaneDelivery(cat, spool, wait_s=120.0),
+                                  device=DEVICE)
+    serving = threading.Thread(target=server.serve, name="det-gateway")
+    serving.start()
+    stop = threading.Event()
+    worker = ScanPlaneWorker(cat, spool, lease_ttl_s=30, poll_interval_s=0.02, worker_id="det-w0")
+    pump = threading.Thread(target=worker.run_forever, kwargs={"stop_event": stop},
+                            name="det-worker")
+    pump.start()
+    try:
+        scan = t.scan().select(DET_PLANE_COLUMNS).batch_size(DET_BATCH).via_scanplane(
+            ScanPlaneClient(f"grpc://127.0.0.1:{server.port}"))
+        rows_plane = sum(int(b["id"].shape[0]) for b in scan.to_torch_iter(
+            device=DEVICE, drop_remainder=False))
+    finally:
+        stop.set()
+        pump.join(60)
+        server.shutdown()
+        serving.join(60)
+    obs_spool = os.path.join(workdir, "obs")
+    os.makedirs(obs_spool)
+    FleetPublisher(obs_spool, flush_s=60.0).flush(reason="detectors")
+    lap("scanplane")
+    # 6. after the host work above, which the kernel builds overlap: 8
+    # threads searching one AnnEndpoint in bursts of mixed sizes, and each one
+    # resident single search a burst
+    for th in loaders:
+        th.join()
+    lap("kernel_build_wait")
+    from lakesoul_tpu_torch.vector import AnnEndpoint, IvfRabitqIndex, SearchParams, VectorIndexConfig
+
+    rng = np.random.default_rng(SEED + 2)
+    xv = rng.normal(size=(DET_ANN_ROWS, DET_ANN_DIM)).astype(np.float32)
+    index = IvfRabitqIndex.train(xv, np.arange(DET_ANN_ROWS),
+                                 VectorIndexConfig("v", DET_ANN_DIM, nlist=DET_ANN_NLIST),
+                                 device=DEVICE)
+    index.enable_device_cache()
+    params = SearchParams(top_k=10, nprobe=DET_ANN_NPROBE, rerank_depth=200)
+    before = (K.packed_dot.launches, K.packed_dot_batch.launches)
+    endpoint = AnnEndpoint(index, params, max_batch=64,
+                           max_pending=DET_ANN_THREADS * max(DET_ANN_BURSTS))
+    hits, errors = [], []
+
+    def searcher(i: int) -> None:
+        r = np.random.default_rng(SEED + 100 + i)
+        try:
+            for burst in DET_ANN_BURSTS:
+                want = r.integers(0, DET_ANN_ROWS, burst)
+                futures = [endpoint.submit(xv[j]) for j in want]
+                hits.extend(int(f.result(60)[0][0]) == int(j) for f, j in zip(futures, want))
+                ids, _ = index.search(xv[want[0]], params)
+                hits.append(int(ids[0]) == int(want[0]))
+        except Exception as e:  # recorded: a searcher's failure fails the phase
+            errors.append(f"{type(e).__name__}: {e}")
+
+    searchers = [threading.Thread(target=searcher, args=(i,), name=f"det-search-{i}")
+                 for i in range(DET_ANN_THREADS)]
+    for th in searchers:
+        th.start()
+    for th in searchers:
+        th.join()
+    endpoint.close()
+    ann_launches = {"packed_dot": K.packed_dot.launches - before[0],
+                    "packed_dot_batch": K.packed_dot_batch.launches - before[1]}
+    check(not errors, f"searcher errors: {errors[:3]}")
+    check(np.mean(hits) >= 0.95, f"the searched rows found themselves {np.mean(hits):.3f} of the time")
+    check(not on_card or all(n > 0 for n in ann_launches.values()),
+          f"a kernel was not launched by the searchers: {ann_launches}")
+    ann_stats = endpoint.stats()
+    lap("ann")
+    scope.__exit__(None, None, None)
+    traced = sorted({a.kind for op in fscheck.ops() for p in (op.path, op.dst)
+                     if p and (a := fscheck.classify(p)) is not None})
+    fs_ops = len(fscheck.ops())
+    fscheck.replay(device=DEVICE)
+    txns = len(txncheck.transactions())
+    txncheck.replay()
+    lap("replays")
+    real = {name: m.violations() for name, m in dets.items()}
+    rec["real_violations"] = {name: len(v) for name, v in real.items()}
+    rec["real_rendered"] = {name: [x.render()[:2000] for x in v[:3]] for name, v in real.items() if v}
+    signatures = tracecheck.signature_counts()
+    rec.update(
+        builds=tracecheck.build_counts(),
+        loads=tracecheck.load_counts(), signatures=signatures,
+        wrappers_within_budget=all(n <= tracecheck.DEFAULT_BUDGET for n in signatures.values()),
+        shm_fds_during_process_group=shm_during_group, shm_fds_after=shm_fds(),
+        fscheck={"ops": fs_ops, "artifact_kinds": traced}, txncheck={"transactions": txns},
+        racecheck_hot_classes=[f"{m}.{c}" for m, c in racecheck.HOT_CLASSES],
+        rows={"count_rows": count, "epoch": rows_epoch, "upserted": upserted,
+              "count_after_writer": count_after, "epoch_after_compaction": rows_after,
+              "scanplane": rows_plane},
+        compaction=outcome, ann={"launches": ann_launches, "hit_rate": float(np.mean(hits)),
+                                 "queries": len(hits), "endpoint": ann_stats},
+    )
+    check(rec["wrappers_within_budget"], f"a hot function over budget: {signatures}")
+    check(not on_card or rec["builds"] == {name: 1 for name in _build.SOURCES},
+          f"kernel builds in this process: {rec['builds']}")
+    check(rows_epoch == count, f"the epoch read {rows_epoch} rows, count_rows {count}")
+    check(rows_plane == count_after == rows_after,
+          f"scan plane {rows_plane}, epoch {rows_after}, count_rows {count_after}")
+    check({"range-segment", "range-sidecar", "session-manifest", "obs-doc"} <= set(traced),
+          f"the crash replay did not trace the spool, manifest and obs docs: {traced}")
+    # 7. one seeded fault per detector, each from a clean slate: each must be
+    # recorded exactly once
+    for m in dets.values():
+        m.reset()
+    seeded = {}
+
+    def seed(name: str, fault) -> None:
+        mark = len(dets[name].violations())
+        fault()
+        seeded[name] = [v.kind for v in dets[name].violations()[mark:]]
+
+    def abba() -> None:
+        from lakesoul_tpu_torch.runtime.pool import get_pool
+
+        a, b = threading.Lock(), threading.Lock()
+
+        def first():
+            with a:
+                with b:
+                    pass
+
+        def second():
+            with b:
+                with a:
+                    pass
+
+        for fn in (first, second):
+            get_pool().submit(fn).result()
+
+    def unguarded() -> None:
+        racecheck.instrument_class(DetCounter)
+        c = DetCounter()
+        for i in range(2):
+            th = threading.Thread(target=c.bump, args=(50,), name=f"det-race-{i}")
+            th.start()
+            th.join()
+
+    def unjoined() -> None:
+        hold = threading.Event()
+        with leakcheck.scope("seeded"):
+            threading.Thread(target=hold.wait, name="det-seeded-leak", daemon=True).start()
+        hold.set()
+
+    def unfsynced() -> None:
+        d = os.path.join(workdir, "seeded-session")
+        os.makedirs(d)
+        with open(os.path.join(d, "manifest.json.tmp-seeded"), "w") as f:
+            f.write("{}")
+        os.replace(os.path.join(d, "manifest.json.tmp-seeded"), os.path.join(d, "manifest.json"))
+
+    def lost_update() -> None:
+        store = cat.client.store
+        store.acquire_lease("detectors-seeded", "victim", ttl_ms=60_000)
+        txncheck.reset()
+
+        def victim():
+            with store.transaction() as conn:
+                store._exec(conn, "SELECT expires_at_ms FROM lease WHERE lease_key=?",
+                            ("detectors-seeded",)).fetchone()
+                store._exec(conn, "UPDATE lease SET expires_at_ms=? WHERE lease_key=?",
+                            (999, "detectors-seeded"))
+
+        th = threading.Thread(target=victim, name="det-victim")
+        th.start()
+        th.join()
+        with store.transaction() as conn:
+            store._exec(conn, "UPDATE lease SET expires_at_ms=?, holder_id=? WHERE lease_key=?",
+                        (111, "thief", "detectors-seeded"))
+        txncheck.replay()
+
+    def thrash() -> None:
+        q = torch.ones(32, device=DEVICE)
+        for n in range(1, DET_THRASH + 1):
+            K.bruteforce_distances(torch.ones((n * 7, 32), device=DEVICE), q)
+
+    thrash_before = K.bruteforce_distances.launches
+    for name, fault in (("lockgraph", abba), ("racecheck", unguarded), ("leakcheck", unjoined),
+                        ("fscheck", unfsynced), ("txncheck", lost_update), ("tracecheck", thrash)):
+        seed(name, fault)
+    lap("seeded")
+    rec["seeded"] = seeded
+    rec["seeded_expected"] = DET_SEEDED_KINDS
+    rec["thrash_launches"] = K.bruteforce_distances.launches - thrash_before
+    for name, kinds in seeded.items():
+        check(kinds == [DET_SEEDED_KINDS[name]], f"{name} recorded {kinds} for its seeded fault")
+    for m in dets.values():
+        m.disable()
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["failed"] = failed
+    print(json.dumps({"phase": "detectors", **rec}, default=str), flush=True)
+    return 1 if failed else 0
 
 
 def proc_children(pid: int) -> list:
@@ -4817,17 +5316,21 @@ def phase_loader(torch, M, L, kind: str) -> dict:
         fleet = phase_fleet_train(torch, L, os.path.join(root, "wh"), count, kind)
         phase_sql(torch, M, L, t, kind)
         console = start_console(t)
+        detectors = start_detectors()
         try:
             phase_flight_sql(torch, L, t, count, kind)
             phase_storage_proxy(L, t, kind)
         except BaseException:
             kill_console(console)
+            kill_detectors(detectors)
             raise
         try:
             phase_console(console, count, kind)
             phase_lint(console, kind)
+            phase_detectors(detectors, kind)
         finally:
             kill_console(console)
+            kill_detectors(detectors)
         plane = phase_scanplane(torch, M, L, t, count, best["rows_per_s"], fleet["oracle"],
                                 kind)
         # the scan plane is the last phase to read the table as written
@@ -5072,6 +5575,8 @@ def main(argv: list) -> int:
         return plane_table_build(argv[1])
     if argv[:1] == ["--gateway-clients"]:
         return gateway_clients(argv[1])
+    if argv[:1] == ["--detectors"]:
+        return detectors_child(argv[1])
 
     started = time.perf_counter()
     import torch

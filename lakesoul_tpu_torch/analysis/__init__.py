@@ -28,10 +28,19 @@ CLI contract, and aims every package scope at this package.
 - :mod:`rules.durability`, :mod:`rules.isolation` (over :mod:`sqlinfo`)
   and :mod:`rules.boundedness` — atomic publication, READ COMMITTED
   portability of the metadata path, and resource budgets + lifecycles.
-
-Not here yet: the reference's device pack (five jit/pallas trace-safety
-rules) and its opt-in runtime detectors (lock order, races, leaks,
-crash-prefix replay, transaction replay, retrace counting).
+- :mod:`rules.device` — the device pack, the counterpart of the
+  reference's jit/pallas rules: CUDA launch safety over ``csrc/*.cu``, its
+  ``ctypes`` bindings and the kernel register (``kernel-abi``,
+  ``device-host-sync``, ``kernel-dtype-width``, ``launch-shape-unbucketed``,
+  ``kernel-raw-entry``) — 40 rules in all.
+- The opt-in runtime detectors, each armed by its variable: lock order
+  (:mod:`lockgraph`, ``LAKESOUL_LOCKCHECK``), races and the reuse ring's
+  canary (:mod:`racecheck`, ``LAKESOUL_RACECHECK``), leaks
+  (:mod:`leakcheck`, ``LAKESOUL_LEAKCHECK``), crash-prefix replay
+  (:mod:`fscheck`, ``LAKESOUL_FSCHECK``), transaction replay
+  (:mod:`txncheck`, ``LAKESOUL_TXNCHECK``) and shape signatures and kernel
+  rebuilds (:mod:`tracecheck`, ``LAKESOUL_TRACECHECK``); :mod:`arm` arms
+  them around a test suite by its name.
 """
 
 from lakesoul_tpu_torch.analysis.engine import (

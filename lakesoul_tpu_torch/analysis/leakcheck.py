@@ -1,0 +1,491 @@
+"""Runtime resource-leak detector (opt-in: ``LAKESOUL_LEAKCHECK=1``).
+
+The port of ``lakesoul_tpu/analysis/leakcheck.py``, over this package's
+seams.
+
+The boundedness rules (``rules/boundedness.py``) prove lexical lifecycle
+discipline; this half of the pack watches the *actual* resources.  The
+static rules can't see a thread leaked through dynamic dispatch, an fd
+held by a C extension, or spool debris created via a path the resolver
+couldn't pin — so :func:`enable` patches the creation seams themselves:
+
+- ``threading.Thread.start`` — the creation stack rides on the thread
+  object, so a leak report names the line that started it;
+- ``subprocess.Popen`` — every child is registered with its spawn stack;
+- ``runtime.atomicio.stage_stream`` — every staged tmp file is tracked
+  until commit/abort unlinks it (a surviving ``.tmp-*`` IS debris);
+- ``tempfile.mkdtemp`` — scratch dirs are tracked so a scope that made
+  one and never pruned it gets the creating stack back.
+
+:func:`snapshot` captures the per-process resource inventory —
+``/proc/self/fd`` (with readlink targets), live threads, tracked child
+pids, tracked artifacts still on disk, and the tracemalloc-traced heap
+when tracing is on — and :func:`diff` compares two snapshots and records
+a :class:`Violation` per leaked resource, each with its creation stack
+when the seam saw it.  The :class:`scope` context manager snapshots on
+enter and diffs on exit; :func:`analysis.arm.armed` wraps each armed
+test in one (the port's scan-plane, autoscale and freshness suites), and
+``chip_smoke.py``'s ``detectors`` phase wraps its work on the card.
+
+Violations are *recorded*, not raised — same contract as lockgraph:
+instrumentation must not change data-path behavior; the fixture fails
+the test at teardown.
+
+Deliberate scope limits: fd leaks are only reported for targets under
+/dev/shm, a spool prefix, or a staged ``.tmp-`` path — a process-wide
+cache legitimately holding a warehouse fd open across tests is not a
+leak, while ANY surviving tmpfs handle is.  Threads of the sanctioned
+process-wide pool singleton (``lakesoul-rt*``) are exempt: the pool
+outlives every test by design.  The raw fd/thread counts still ride on
+every snapshot so a soak can gate on their slope.
+
+``/dev/shm`` on the card.  The scope stays as the reference's: any tmpfs
+handle that outlives its scope is a leak, CUDA or not, NCCL's included.
+CUDA IPC opens no ``/dev/shm`` file (its handles are driver objects), and
+the pinned ring, the replay cache and the copy streams hold device or
+pinned host memory, not files.  ``chip_smoke.py``'s ``detectors`` phase
+holds this on the card: it records every ``/dev/shm`` descriptor that a
+one-rank NCCL group and the loader's epoch open inside a scope, which
+must end with no leak.  No holder is exempt until a run on the card shows
+one whose segment rightly outlives a scope.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import threading
+import traceback
+import weakref
+from dataclasses import dataclass, field
+
+from lakesoul_tpu_torch.analysis.lockgraph import real_lock
+
+__all__ = [
+    "Violation",
+    "Snapshot",
+    "snapshot",
+    "diff",
+    "scope",
+    "enable",
+    "disable",
+    "reset",
+    "violations",
+    "enabled",
+    "env_requested",
+    "watch",
+]
+
+_ENV = "LAKESOUL_LEAKCHECK"
+
+# process-wide singletons whose threads legitimately outlive any scope
+_SANCTIONED_THREAD_PREFIXES = ("lakesoul-rt",)
+
+# fd targets that are ALWAYS a leak when they survive a scope; anything
+# else (warehouse files, sockets, sqlite dbs) may be a legitimate cache
+_DEBRIS_FD_MARKERS = ("/dev/shm/", "lakesoul-scanplane-", ".tmp-")
+
+
+@dataclass
+class Violation:
+    kind: str  # "thread-leak" | "child-leak" | "fd-leak" | "debris" | "heap-growth"
+    message: str
+    stacks: tuple[str, ...] = ()
+
+    def render(self) -> str:
+        out = [f"[{self.kind}] {self.message}"]
+        for s in self.stacks:
+            out.append(s.rstrip())
+        return "\n".join(out)
+
+
+def _stack_summary() -> str:
+    frames = traceback.extract_stack()[:-2]
+    keep = [
+        f"  {fr.filename}:{fr.lineno} in {fr.name}"
+        for fr in frames[-8:]
+        if "lakesoul_tpu_torch/analysis/leakcheck" not in fr.filename.replace("\\", "/")
+    ]
+    return "\n".join(keep)
+
+
+class _State:
+    def __init__(self):
+        self.lock = real_lock()
+        self.enabled = False
+        # pid -> (weakref to Popen, creation stack)
+        self.children: dict[int, tuple] = {}
+        # artifact path -> creation stack (staged tmps, mkdtemp dirs)
+        self.artifacts: dict[str, str] = {}
+        self.violations: list[Violation] = []
+        self.reported: set = set()
+
+
+_STATE = _State()
+
+
+# ------------------------------------------------------------ seam patches
+# Originals are captured at patch time and restored on disable; each patch
+# marks itself so a double enable() can't wrap twice.
+
+_REAL_THREAD_START = None
+_REAL_POPEN_INIT = None
+_REAL_STAGE_STREAM = None
+_REAL_MKDTEMP = None
+
+
+def _patched_thread_start(self):
+    if _STATE.enabled:
+        self._leakcheck_stack = _stack_summary()
+    return _REAL_THREAD_START(self)
+
+
+def _patched_popen_init(self, *args, **kwargs):
+    _REAL_POPEN_INIT(self, *args, **kwargs)
+    if _STATE.enabled:
+        stack = _stack_summary()
+        with _STATE.lock:
+            _STATE.children[self.pid] = (weakref.ref(self), stack)
+
+
+def _patched_stage_stream(path, write_fn, **kwargs):
+    staged = _REAL_STAGE_STREAM(path, write_fn, **kwargs)
+    if _STATE.enabled:
+        with _STATE.lock:
+            _STATE.artifacts[staged.tmp] = _stack_summary()
+    return staged
+
+
+def _patched_mkdtemp(*args, **kwargs):
+    d = _REAL_MKDTEMP(*args, **kwargs)
+    # pytest's basetemp tree is mkdtemp-created and *retained by design*
+    # (the last runs stay on disk for debugging) — not debris
+    if _STATE.enabled and "pytest-" not in d:
+        with _STATE.lock:
+            _STATE.artifacts[d] = _stack_summary()
+    return d
+
+
+def _instrument() -> None:
+    global _REAL_THREAD_START, _REAL_POPEN_INIT
+    global _REAL_STAGE_STREAM, _REAL_MKDTEMP
+    import tempfile
+
+    from lakesoul_tpu_torch.runtime import atomicio
+
+    if _REAL_THREAD_START is None:
+        _REAL_THREAD_START = threading.Thread.start
+        threading.Thread.start = _patched_thread_start
+    if _REAL_POPEN_INIT is None:
+        _REAL_POPEN_INIT = subprocess.Popen.__init__
+        subprocess.Popen.__init__ = _patched_popen_init
+    if _REAL_STAGE_STREAM is None:
+        _REAL_STAGE_STREAM = atomicio.stage_stream
+        atomicio.stage_stream = _patched_stage_stream
+    if _REAL_MKDTEMP is None:
+        _REAL_MKDTEMP = tempfile.mkdtemp
+        tempfile.mkdtemp = _patched_mkdtemp
+
+
+def _restore() -> None:
+    global _REAL_THREAD_START, _REAL_POPEN_INIT
+    global _REAL_STAGE_STREAM, _REAL_MKDTEMP
+    import tempfile
+
+    from lakesoul_tpu_torch.runtime import atomicio
+
+    if _REAL_THREAD_START is not None:
+        threading.Thread.start = _REAL_THREAD_START
+        _REAL_THREAD_START = None
+    if _REAL_POPEN_INIT is not None:
+        subprocess.Popen.__init__ = _REAL_POPEN_INIT
+        _REAL_POPEN_INIT = None
+    if _REAL_STAGE_STREAM is not None:
+        atomicio.stage_stream = _REAL_STAGE_STREAM
+        _REAL_STAGE_STREAM = None
+    if _REAL_MKDTEMP is not None:
+        tempfile.mkdtemp = _REAL_MKDTEMP
+        _REAL_MKDTEMP = None
+
+
+# --------------------------------------------------------------- snapshots
+
+
+@dataclass(frozen=True)
+class Snapshot:
+    """One resource inventory.  ``fd_targets`` maps fd → readlink target
+    for post-hoc attribution; ``heap`` is the tracemalloc-traced current
+    bytes (None when tracing is off — tracing is the caller's choice, the
+    soak leg turns it on, the per-test fixture does not pay for it)."""
+
+    fds: frozenset
+    fd_targets: "dict[int, str]" = field(compare=False, default_factory=dict)
+    threads: frozenset = frozenset()
+    children: frozenset = frozenset()
+    artifacts: frozenset = frozenset()
+    heap: "int | None" = None
+
+    @property
+    def fd_count(self) -> int:
+        return len(self.fds)
+
+    @property
+    def thread_count(self) -> int:
+        return len(self.threads)
+
+
+def _fd_inventory() -> "tuple[frozenset, dict]":
+    fds = []
+    targets = {}
+    try:
+        names = os.listdir("/proc/self/fd")
+    except OSError:
+        return frozenset(), {}
+    for name in names:
+        try:
+            fd = int(name)
+        except ValueError:
+            continue
+        try:
+            targets[fd] = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue  # closed between listdir and readlink
+        fds.append(fd)
+    return frozenset(fds), targets
+
+
+def _live_tracked_children() -> frozenset:
+    with _STATE.lock:
+        items = list(_STATE.children.items())
+    live = []
+    for pid, (ref, _stack) in items:
+        proc = ref()
+        if proc is not None and proc.poll() is None:
+            live.append(pid)
+    return frozenset(live)
+
+
+def _existing_artifacts() -> frozenset:
+    with _STATE.lock:
+        paths = list(_STATE.artifacts)
+    return frozenset(p for p in paths if os.path.exists(p))
+
+
+def snapshot() -> Snapshot:
+    import tracemalloc
+
+    fds, targets = _fd_inventory()
+    return Snapshot(
+        fds=fds,
+        fd_targets=targets,
+        threads=frozenset(t.ident for t in threading.enumerate()),
+        children=_live_tracked_children(),
+        artifacts=_existing_artifacts(),
+        heap=(
+            tracemalloc.get_traced_memory()[0]
+            if tracemalloc.is_tracing()
+            else None
+        ),
+    )
+
+
+def _record(v: Violation, key) -> None:
+    with _STATE.lock:
+        if key in _STATE.reported:
+            return
+        _STATE.reported.add(key)
+        _STATE.violations.append(v)
+
+
+def diff(before: Snapshot, *, label: str = "scope",
+         heap_budget: "int | None" = None,
+         join_grace_s: float = 0.5) -> "list[Violation]":
+    """Compare now against ``before`` and record one violation per leaked
+    resource.  Leak candidates that are merely *slow* get grace: new
+    threads are joined up to ``join_grace_s`` before being reported (a
+    stop path that raced the snapshot is not a leak)."""
+    found: list[Violation] = []
+
+    # threads: new, still alive, not sanctioned
+    for t in threading.enumerate():
+        if t.ident in before.threads or t is threading.current_thread():
+            continue
+        if t.name.startswith(_SANCTIONED_THREAD_PREFIXES):
+            continue
+        t.join(timeout=join_grace_s)
+        if not t.is_alive():
+            continue
+        stack = getattr(t, "_leakcheck_stack", None)
+        v = Violation(
+            "thread-leak",
+            f"{label}: thread {t.name!r} (daemon={t.daemon}) started during "
+            "the scope is still running at scope end — nothing joined or "
+            "stopped it",
+            (stack,) if stack else (),
+        )
+        _record(v, ("thread", t.ident))
+        found.append(v)
+
+    # children: tracked pids spawned during the scope, still running
+    with _STATE.lock:
+        tracked = list(_STATE.children.items())
+    for pid, (ref, stack) in tracked:
+        if pid in before.children:
+            continue
+        proc = ref()
+        if proc is None or proc.poll() is not None:
+            continue
+        v = Violation(
+            "child-leak",
+            f"{label}: child pid {pid} spawned during the scope is still "
+            "running at scope end — no wait/terminate reached it",
+            (stack,),
+        )
+        _record(v, ("child", pid))
+        found.append(v)
+
+    # artifacts: staged tmps / scratch dirs created during the scope that
+    # still exist (commit renames, abort unlinks, pruners rmtree — a
+    # survivor means none of them ran)
+    now_artifacts = _existing_artifacts()
+    with _STATE.lock:
+        stacks = dict(_STATE.artifacts)
+    for path in sorted(now_artifacts - before.artifacts):
+        v = Violation(
+            "debris",
+            f"{label}: scratch path {path} created during the scope still "
+            "exists at scope end — it never flowed into a commit, abort, "
+            "or prune seam",
+            (stacks.get(path, ""),),
+        )
+        _record(v, ("debris", path))
+        found.append(v)
+
+    # fds: new descriptors whose target is unambiguously scratch state
+    fds, targets = _fd_inventory()
+    for fd in sorted(fds - before.fds):
+        target = targets.get(fd, "")
+        if not any(m in target for m in _DEBRIS_FD_MARKERS):
+            continue
+        v = Violation(
+            "fd-leak",
+            f"{label}: fd {fd} → {target} opened during the scope is still "
+            "open at scope end",
+        )
+        _record(v, ("fd", fd, target))
+        found.append(v)
+
+    # heap: only a violation when the caller set a budget (the soak leg
+    # gates on slope instead; per-test scopes just carry the numbers)
+    if heap_budget is not None and before.heap is not None:
+        import tracemalloc
+
+        if tracemalloc.is_tracing():
+            now_heap = tracemalloc.get_traced_memory()[0]
+            growth = now_heap - before.heap
+            if growth > heap_budget:
+                v = Violation(
+                    "heap-growth",
+                    f"{label}: traced heap grew {growth} bytes over the "
+                    f"scope (budget {heap_budget})",
+                )
+                _record(v, ("heap", label))
+                found.append(v)
+    return found
+
+
+class scope:
+    """``with scope("test_x"):`` — snapshot on enter, diff on exit; every
+    leak becomes a recorded violation carrying its creation stack."""
+
+    def __init__(self, label: str = "scope",
+                 heap_budget: "int | None" = None):
+        self.label = label
+        self.heap_budget = heap_budget
+        self.before: "Snapshot | None" = None
+        self.leaks: "list[Violation]" = []
+
+    def __enter__(self) -> "scope":
+        self.before = snapshot()
+        return self
+
+    def __exit__(self, *exc):
+        if self.before is not None:
+            self.leaks = diff(
+                self.before, label=self.label, heap_budget=self.heap_budget
+            )
+        return False
+
+
+# ----------------------------------------------------------------- control
+
+
+def enabled() -> bool:
+    return _STATE.enabled
+
+
+def env_requested() -> bool:
+    return os.environ.get(_ENV, "").strip() == "1"
+
+
+def violations() -> "list[Violation]":
+    with _STATE.lock:
+        return list(_STATE.violations)
+
+
+def reset() -> None:
+    """Drop recorded registries and violations."""
+    with _STATE.lock:
+        _STATE.children.clear()
+        _STATE.artifacts.clear()
+        _STATE.violations.clear()
+        _STATE.reported.clear()
+
+
+def enable() -> None:
+    """Patch the creation seams.  Idempotent."""
+    if _STATE.enabled:
+        return
+    _instrument()
+    _STATE.enabled = True
+
+
+def disable() -> None:
+    """Restore the real seams; recording stops."""
+    if not _STATE.enabled:
+        return
+    _restore()
+    _STATE.enabled = False
+
+
+class Watch:
+    """Handle yielded by :func:`watch`: violations recorded since entry."""
+
+    def __init__(self, mark: int):
+        self._mark = mark
+
+    @property
+    def violations(self) -> "list[Violation]":
+        return violations()[self._mark:]
+
+
+class watch:
+    """``with watch() as w:`` — enable for the block and run it inside one
+    :class:`scope`; inspect ``w.violations`` after (state is NOT reset on
+    exit, so watches compose; call :func:`reset` between scenarios)."""
+
+    def __init__(self, label: str = "watch"):
+        self._scope = scope(label)
+
+    def __enter__(self) -> Watch:
+        self._was_enabled = _STATE.enabled
+        enable()
+        handle = Watch(len(violations()))
+        self._scope.__enter__()
+        return handle
+
+    def __exit__(self, *exc):
+        self._scope.__exit__(*exc)
+        if not self._was_enabled:
+            disable()
+        return False

@@ -1,0 +1,376 @@
+"""Runtime race detector (opt-in: ``LAKESOUL_RACECHECK=1``).
+
+The port of ``lakesoul_tpu/analysis/racecheck.py``.  The static lockset
+rules (``shared-state-race``/``racy-check-then-act``) see lexical lock
+scopes and resolved call edges; this is their runtime half, in the
+:mod:`~lakesoul_tpu_torch.analysis.lockgraph` mold: instrument the hot
+classes themselves and run **Eraser's lockset algorithm** on what the
+threads actually do.
+
+Mechanics:
+
+- :func:`enable` patches ``__setattr__`` on the instrumented hot classes
+  (:data:`HOT_CLASSES`: the rebatcher and loader stats of ``to_torch_iter``,
+  the pipeline iterator, the admission controller and circuit breaker, the
+  lease heartbeat, the ANN endpoint) and shares the lockgraph's
+  checked-lock machinery (``instrument_locks()``) so every attribute write
+  knows which locks the writing thread holds.
+- Per ``(object, field)``, Eraser's state machine: the first writing
+  thread owns the field exclusively (the init phase — construction
+  happens-before publication).  The moment a SECOND thread writes, the
+  field's candidate lockset is initialized to the locks held at that
+  write and intersected at every write after; an empty intersection is a
+  :class:`Violation` carrying **both access stacks** (the first owner's
+  and the racing writer's).  Reads are not tracked (that would need
+  ``__getattribute__`` interception on every access — the write-write
+  detector is the 90% case and costs ~nothing when disarmed).
+- **Ring canary/poison mode**: ``_BufferRing.next_slot`` is patched so
+  every slot hand-out first checks that nothing still reads the slot, then
+  fills its buffers with a poison byte pattern so any stale read that does
+  survive is loud garbage instead of plausible training data.  Collate
+  overwrites every row of the slot, so poisoning is invisible to
+  conforming consumers (byte-identity preserved).  What "still reads"
+  means depends on where the slot's batch went:
+
+  * to the card: the slot is pinned host memory whose bytes an H2D copy
+    reads asynchronously; the delivery keeps the copy's CUDA event on the
+    slot and references to the batch in its in-flight queue, so a
+    refcount says nothing.  The canary checks the event instead: the slot
+    must not be handed out before the copy it fed has completed
+    (``event.query()``), and it is poisoned only after that — never while
+    the copy may still be reading it;
+  * to a host consumer (``device_put=False``): the slot's arrays must be
+    referenced by the slot dict alone, as in the reference — a live
+    delivered batch means the consumer broke the
+    ``LAKESOUL_COLLATE_REUSE`` contract and is about to read overwritten
+    bytes.
+
+Violations are *recorded*, not raised — instrumentation must never change
+program behavior; :func:`analysis.arm.armed` arms the detector for the
+suites that name it and the suite's fixture fails the test at teardown,
+exactly like the lockgraph and tracecheck detectors.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import sys
+import threading
+import traceback
+import weakref
+from dataclasses import dataclass, field
+
+from lakesoul_tpu_torch.analysis import lockgraph
+
+__all__ = [
+    "HOT_CLASSES",
+    "Violation",
+    "enable",
+    "disable",
+    "enabled",
+    "env_requested",
+    "instrument_class",
+    "reset",
+    "violations",
+    "watch",
+]
+
+_ENV = "LAKESOUL_RACECHECK"
+
+# (module, class): the shared-state hot spots of the concurrent data path —
+# instance scalars/flags whose torn updates are silent corruption
+HOT_CLASSES = (
+    ("lakesoul_tpu_torch.data.torch_iter", "_Rebatcher"),
+    ("lakesoul_tpu_torch.data.torch_iter", "LoaderStats"),
+    ("lakesoul_tpu_torch.runtime.pipeline", "PipelineIterator"),
+    ("lakesoul_tpu_torch.runtime.resilience", "AdmissionController"),
+    ("lakesoul_tpu_torch.runtime.resilience", "CircuitBreaker"),
+    ("lakesoul_tpu_torch.runtime.lease", "LeaseHeartbeat"),
+    ("lakesoul_tpu_torch.vector.serving", "AnnEndpoint"),
+)
+
+_RING_MODULE = "lakesoul_tpu_torch.data.torch_iter"
+_RING_CLASS = "_BufferRing"
+_POISON = 0xAB
+
+
+@dataclass
+class Violation:
+    kind: str  # "shared-state-write" | "ring-use-after-release"
+    message: str
+    stacks: tuple[str, ...] = ()
+
+    def render(self) -> str:
+        out = [f"[{self.kind}] {self.message}"]
+        for s in self.stacks:
+            out.append(s.rstrip())
+        return "\n".join(out)
+
+
+class _FieldState:
+    """Eraser per-field state: owner thread(s) + candidate lockset."""
+
+    __slots__ = ("owners", "lockset", "reported")
+
+    def __init__(self):
+        self.owners: dict[int, str] = {}  # thread id -> first-write stack
+        self.lockset: "set | None" = None  # None until the field is shared
+        self.reported = False
+
+
+class _State:
+    def __init__(self):
+        self.lock = lockgraph.real_lock()
+        self.enabled = False
+        # WeakKeyDictionary keeps dead objects from pinning state AND from
+        # donating their recycled id() to a fresh object (the lockgraph
+        # serial lesson)
+        self.fields: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        self.violations: list[Violation] = []
+        self.patched: list[tuple] = []  # (cls, attr, original)
+
+
+_STATE = _State()
+
+# per-thread identity that is NEVER recycled: threading.get_ident() values
+# are reused after a join, which would conflate two sequential short-lived
+# pump threads into one "owner" and silently pass a real race — a
+# thread-local serial dies with its thread and the next thread draws fresh
+_THREAD_TLS = threading.local()
+_THREAD_SERIALS = itertools.count(1)
+
+
+def _thread_token() -> int:
+    token = getattr(_THREAD_TLS, "token", None)
+    if token is None:
+        token = _THREAD_TLS.token = next(_THREAD_SERIALS)
+    return token
+
+
+def _stack_summary() -> str:
+    frames = traceback.extract_stack()[:-3]
+    keep = [
+        f"  {fr.filename}:{fr.lineno} in {fr.name}"
+        for fr in frames[-8:]
+        if "lakesoul_tpu_torch/analysis/racecheck" not in fr.filename.replace("\\", "/")
+    ]
+    return "\n".join(keep)
+
+
+def _held_locks() -> frozenset:
+    return frozenset(
+        (l.serial, l.name) for l in lockgraph.current_held()
+    )
+
+
+def _record_write(label: str, obj, name: str) -> None:
+    tid = _thread_token()
+    held = _held_locks()
+    with _STATE.lock:
+        if not _STATE.enabled:
+            return
+        try:
+            per_obj = _STATE.fields.setdefault(obj, {})
+        except TypeError:
+            return  # unhashable/unweakrefable instance: skip, don't break it
+        st = per_obj.get(name)
+        if st is None:
+            st = per_obj[name] = _FieldState()
+        first_of_thread = tid not in st.owners
+        if first_of_thread:
+            st.owners[tid] = _stack_summary() if len(st.owners) < 8 else ""
+        if len(st.owners) == 1:
+            return  # exclusive (init phase): no lock discipline required yet
+        # shared: Eraser lockset refinement, initialized at the first write
+        # that makes the field shared (the exclusive phase set no constraint)
+        if st.lockset is None:
+            st.lockset = set(held)
+        else:
+            st.lockset &= held
+        if not st.lockset and not st.reported:
+            st.reported = True
+            other = next(
+                (s for t, s in st.owners.items() if t != tid and s), ""
+            )
+            stacks = []
+            if other:
+                stacks.append(f"first writer:\n{other}")
+            stacks.append(f"racing writer (thread {tid}):\n{_stack_summary()}")
+            _STATE.violations.append(Violation(
+                "shared-state-write",
+                f"{label}.{name} written by {len(st.owners)} threads with no "
+                "common lock — interleaved updates can tear/corrupt it",
+                tuple(stacks),
+            ))
+
+
+def _checked_setattr(orig, label: str):
+    def __setattr__(self, name, value):
+        if _STATE.enabled:
+            _record_write(label, self, name)
+        orig(self, name, value)
+
+    __setattr__._racecheck_orig = orig
+    return __setattr__
+
+
+# ------------------------------------------------------------- ring canary
+
+
+def _checked_next_slot(orig):
+    def next_slot(self):
+        # the slot about to be handed out, and the copy event it carries
+        # before the ring's own wait clears it
+        upcoming = self._slots[self._next]
+        pending = getattr(upcoming, "event", None)
+        slot = orig(self)
+        if _STATE.enabled:
+            _canary_check(slot, pending)
+        return slot
+
+    next_slot._racecheck_orig = orig
+    return next_slot
+
+
+def _ring_violation(message: str) -> None:
+    with _STATE.lock:
+        if _STATE.enabled:
+            _STATE.violations.append(Violation(
+                "ring-use-after-release", message, (_stack_summary(),)))
+
+
+def _canary_check(slot: dict, pending) -> None:
+    if pending is not None:
+        # a slot that fed a copy to the card: its bytes are free once that
+        # copy's event has completed, whoever still references the batch
+        if not pending.query():
+            _ring_violation(
+                "collate ring slot handed out while the copy to the card "
+                "that reads it is still in flight — the next collate would "
+                "overwrite bytes the device has not read yet (the ring must "
+                "wait on the copy's event before reuse)")
+            return  # never poison bytes a copy may still be reading
+    else:
+        for name in list(slot.keys()):
+            # a slot buffer about to be overwritten must be referenced by
+            # the slot dict alone: dict entry + getrefcount's argument = 2.
+            # More means a borrower still holds the previous window's batch.
+            if sys.getrefcount(slot[name]) > 2:
+                _ring_violation(
+                    f"collate ring slot buffer {name!r} is being reused "
+                    "while a borrowed view is still live — the consumer "
+                    "holds more batches than the ring covers "
+                    "(LAKESOUL_COLLATE_REUSE contract: copy out before "
+                    "the ring wraps)")
+    for arr in slot.values():
+        try:
+            arr.view("uint8")[...] = _POISON  # poison: stale reads go loud
+        except (TypeError, ValueError, AttributeError):
+            pass  # non-contiguous/odd dtype: detection still stands
+
+
+# ----------------------------------------------------------------- control
+
+
+def enabled() -> bool:
+    return _STATE.enabled
+
+
+def env_requested() -> bool:
+    return os.environ.get(_ENV, "").strip() == "1"
+
+
+def violations() -> list[Violation]:
+    with _STATE.lock:
+        return list(_STATE.violations)
+
+
+def reset() -> None:
+    """Drop per-field state and recorded violations (instrumentation
+    stays) — call between independent scenarios."""
+    with _STATE.lock:
+        _STATE.fields = weakref.WeakKeyDictionary()
+        _STATE.violations.clear()
+
+
+def instrument_class(cls) -> None:
+    """Wrap ``cls.__setattr__`` with the Eraser write hook.  Idempotent;
+    public so tests can instrument fixture classes."""
+    current = cls.__dict__.get("__setattr__", cls.__setattr__)
+    if hasattr(current, "_racecheck_orig"):
+        return
+    had_own = "__setattr__" in cls.__dict__
+    cls.__setattr__ = _checked_setattr(current, cls.__name__)
+    _STATE.patched.append((cls, "__setattr__", current if had_own else None))
+
+
+def _instrument_hot_classes() -> None:
+    import importlib
+
+    for modname, clsname in HOT_CLASSES:
+        mod = importlib.import_module(modname)
+        cls = getattr(mod, clsname, None)
+        if cls is not None:
+            instrument_class(cls)
+    ring_mod = importlib.import_module(_RING_MODULE)
+    ring = getattr(ring_mod, _RING_CLASS, None)
+    if ring is not None and not hasattr(ring.next_slot, "_racecheck_orig"):
+        orig = ring.next_slot
+        ring.next_slot = _checked_next_slot(orig)
+        _STATE.patched.append((ring, "next_slot", orig))
+
+
+def enable() -> None:
+    """Instrument the hot classes + share the checked-lock machinery.
+    Idempotent."""
+    if _STATE.enabled:
+        return
+    lockgraph.instrument_locks()
+    _instrument_hot_classes()
+    _STATE.enabled = True
+
+
+def disable() -> None:
+    """Restore the instrumented classes and release the lock patch.
+    Recording stops; instances keep working."""
+    if not _STATE.enabled:
+        return
+    for cls, attr, orig in reversed(_STATE.patched):
+        if orig is None:
+            try:
+                delattr(cls, attr)
+            except AttributeError:
+                pass
+        else:
+            setattr(cls, attr, orig)
+    _STATE.patched.clear()
+    lockgraph.uninstrument_locks()
+    _STATE.enabled = False
+
+
+class Watch:
+    """Handle yielded by :func:`watch`: violations recorded since entry."""
+
+    def __init__(self, mark: int):
+        self._mark = mark
+
+    @property
+    def violations(self) -> list[Violation]:
+        return violations()[self._mark :]
+
+
+class watch:
+    """``with watch() as w:`` — enable for the block, inspect
+    ``w.violations`` after (state is NOT reset on exit so nested watches
+    compose; call :func:`reset` between independent scenarios)."""
+
+    def __enter__(self) -> Watch:
+        self._was_enabled = _STATE.enabled
+        enable()
+        return Watch(len(violations()))
+
+    def __exit__(self, *exc):
+        if not self._was_enabled:
+            disable()
+        return False

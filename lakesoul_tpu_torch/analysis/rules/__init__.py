@@ -11,9 +11,10 @@ file's shared AST) and the interprocedural rules (``finalize(project)``
 over the shared project call graph — ``Project.callgraph()``).  On top of
 those ride the themed packs — concurrency (thread-root locksets + buffer
 lifetimes), durability (atomic publication), isolation (READ COMMITTED
-portability), and boundedness (resource budgets + thread/child/scratch
-lifecycles) — 35 rules total.  The reference's device pack (jit/pallas
-trace safety, five rules) has no counterpart here yet.
+portability), boundedness (resource budgets + thread/child/scratch
+lifecycles), and the device pack (CUDA launch safety: C ABI, host syncs,
+dtype widths, shape buckets, raw entries — the counterpart of the
+reference's five jit/pallas rules) — 40 rules total.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from lakesoul_tpu_torch.analysis.rules.conventions import (
     UndocumentedEnvRule,
 )
 from lakesoul_tpu_torch.analysis.rules.determinism import StageNondeterminismRule
+from lakesoul_tpu_torch.analysis.rules.device import device_rules
 from lakesoul_tpu_torch.analysis.rules.durability import (
     BarrierOrderRule,
     TornPublishRule,
@@ -120,6 +122,8 @@ def all_rules() -> list[Rule]:
         ThreadLifecycleRule(),
         ChildReapRule(),
         ShmDebrisRule(),
+        # device pack (CUDA launch safety over csrc/ and its ctypes bindings)
+        *device_rules(),
     ]
 
 

@@ -43,6 +43,10 @@ from lakesoul_tpu_torch.meta.entity import (
 )
 from lakesoul_tpu_torch.utils import spark_hash
 
+# how many times a compaction commit that lost its race to a writer's appends
+# may catch up (LakeSoulTable.compact) before it is a conflict
+COMPACT_CATCH_UP = 8
+
 
 class LakeSoulCatalog:
     """Warehouse-rooted catalog over a metadata store."""
@@ -345,32 +349,44 @@ class LakeSoulTable:
         cleaned up the same way."""
         from lakesoul_tpu_torch.errors import LeaseFencedError
 
-        client = self.catalog.client
+        try:
+            self._commit_staged(head, outputs, commit_op, lease=lease)
+        except (CommitConflictError, LeaseFencedError):
+            self._delete_staged(outputs)
+            raise
+        self._discard_replaced(head, old_files)
+
+    def _commit_staged(self, head, outputs, commit_op, *, lease=None) -> None:
+        """Commit the staged ``outputs`` against the read ``head``; raises
+        the conflict (or the fence) with the outputs left on disk."""
         files_by_partition: dict[str, list[DataFileOp]] = {head.partition_desc: []}
         for out in outputs:
             files_by_partition.setdefault(out.partition_desc, []).append(
                 DataFileOp(path=out.path, file_op="add", size=out.size,
                            file_exist_cols=out.file_exist_cols)
             )
-        try:
-            client.commit_data_files(
-                self._info,
-                files_by_partition,
-                commit_op,
-                read_partition_info=[head],
-                lease=lease,
-                # the except below deletes the staged outputs, so the
-                # phase-1 rows must die with them (see commit_data_files)
-                staged_deleted_on_conflict=True,
-            )
-        except (CommitConflictError, LeaseFencedError):
-            from lakesoul_tpu_torch.io.object_store import delete_file
+        self.catalog.client.commit_data_files(
+            self._info,
+            files_by_partition,
+            commit_op,
+            read_partition_info=[head],
+            lease=lease,
+            # a failed commit's staged outputs are deleted or committed
+            # again under new rows, so its phase-1 rows must die (see
+            # commit_data_files)
+            staged_deleted_on_conflict=True,
+        )
 
-            for out in outputs:
-                delete_file(out.path, self.catalog.storage_options, missing_ok=True)
-            raise
+    def _delete_staged(self, outputs) -> None:
+        from lakesoul_tpu_torch.io.object_store import delete_file
+
+        for out in outputs:
+            delete_file(out.path, self.catalog.storage_options, missing_ok=True)
+
+    def _discard_replaced(self, head, old_files) -> None:
         for f in old_files:
-            client.store.insert_discard_file(f, self._info.table_path, head.partition_desc)
+            self.catalog.client.store.insert_discard_file(
+                f, self._info.table_path, head.partition_desc)
 
     @staticmethod
     def _partition_constraints(flt: Filter, range_cols: list[str]) -> dict[str, str]:
@@ -601,12 +617,28 @@ class LakeSoulTable:
 
     # ------------------------------------------------------------ compaction
     def compact(self, partitions: dict[str, str] | None = None, *, lease=None) -> int:
-        """Merge each (partition, bucket)'s file stack into a single file and
+        """Merge each (partition, bucket)'s file stack into sorted files and
         commit with CompactionCommit; replaced files go to the discard list
         for the cleaner.  Mirrors Spark CompactionCommand + CompactBucketIO.
-        ``lease`` (from a leased compaction service) fences the commit and
-        stamps its fencing token into the version row's expression.
-        Returns the number of partitions compacted."""
+        The writer rolls a file at ``max_file_rows``, so a bucket of r rows
+        comes out in at most ceil(r / ``max_file_rows``) + 1 files, not
+        always one.  ``lease`` (from a leased compaction service) fences the
+        commit and stamps its fencing token into the version row's
+        expression.
+
+        The commit needs the head it read (a CompactionCommit head is read
+        without a merge), so a writer that commits more often than one pass
+        takes would starve it.  A commit that lost its race to appends and
+        merges only (the new head's snapshot extends the one compacted)
+        catches up instead, up to ``COMPACT_CATCH_UP`` times: the buckets
+        those commits touched are merged again from the staged output plus
+        just their new files — the staged output first, so newer rows still
+        win — and the commit is retried against the new head.  A rewrite or
+        delete in between is a conflict.  Returns the number of partitions
+        compacted."""
+        from lakesoul_tpu_torch.errors import LeaseFencedError
+        from lakesoul_tpu_torch.obs import registry
+
         client = self.catalog.client
         heads = client._select_partitions(self._info, partitions)
         count = 0
@@ -618,33 +650,97 @@ class LakeSoulTable:
             )
             if not units or all(len(u.data_files) <= 1 and not u.primary_keys for u in units):
                 continue
-            cfg = self.io_config()
-            writer = TableWriter(cfg, self._info.table_path)
-            old_files = []
-            for unit in units:
-                # streamed merge: a bucket deeper than the byte budget compacts
-                # with flat memory (merged windows feed the writer, whose own
-                # budget rolls oversized cells into several sorted files)
-                for batch in iter_scan_unit_batches(
-                    unit.data_files,
-                    unit.primary_keys,
-                    batch_size=cfg.batch_size,
-                    memory_budget_bytes=cfg.memory_budget_bytes,
-                    file_sizes=unit.file_sizes,
-                    schema=self.schema,
-                    partition_values=unit.partition_values,
-                    merge_operators=cfg.merge_operators,
-                    cdc_column=None,  # keep CDC rows through compaction
-                ):
-                    if len(batch):
-                        writer.write_batch(batch)
-                old_files.extend(unit.data_files)
-            outputs = writer.close()
-            self._commit_partition_rewrite(
-                head, outputs, old_files, CommitOp.COMPACTION, lease=lease
-            )
+            outputs = self._merge_units(units)
+            old_files = [f for u in units for f in u.data_files]
+            rounds = 0
+            while True:
+                try:
+                    self._commit_staged(head, outputs, CommitOp.COMPACTION, lease=lease)
+                    break
+                except LeaseFencedError:
+                    self._delete_staged(outputs)
+                    raise
+                except CommitConflictError:
+                    if rounds == COMPACT_CATCH_UP:
+                        self._delete_staged(outputs)
+                        raise
+                    rounds += 1
+                    head, outputs, added = self._catch_up(head, outputs)
+                    old_files += added
+                    registry().counter("lakesoul_compaction_catch_ups_total").inc()
+            self._discard_replaced(head, old_files)
             count += 1
         return count
+
+    def _merge_units(self, units) -> list:
+        """Merge each scan unit's files into staged sorted files (streamed:
+        a bucket deeper than the byte budget compacts with flat memory; the
+        writer's own budget rolls oversized cells into several files)."""
+        cfg = self.io_config()
+        writer = TableWriter(cfg, self._info.table_path)
+        for unit in units:
+            for batch in iter_scan_unit_batches(
+                unit.data_files,
+                unit.primary_keys,
+                batch_size=cfg.batch_size,
+                memory_budget_bytes=cfg.memory_budget_bytes,
+                file_sizes=unit.file_sizes,
+                schema=self.schema,
+                partition_values=unit.partition_values,
+                merge_operators=cfg.merge_operators,
+                cdc_column=None,  # keep CDC rows through compaction
+            ):
+                if len(batch):
+                    writer.write_batch(batch)
+        return writer.close()
+
+    def _catch_up(self, head, outputs) -> tuple:
+        """One catch-up round of :meth:`compact` after a lost commit race:
+        returns (the new head, the staged outputs for it, the data files the
+        new commits added).  Raises the conflict again, deleting the staged
+        outputs, when the head moved by anything but appends and merges."""
+        client = self.catalog.client
+        cur = client.store.get_latest_partition_info(self._info.table_id, head.partition_desc)
+        n = len(head.snapshot)
+        if cur is None or len(cur.snapshot) <= n or list(cur.snapshot[:n]) != list(head.snapshot):
+            self._delete_staged(outputs)
+            raise CommitConflictError(
+                f"compaction of {head.partition_desc}: the partition was rewritten since"
+                f" version {head.version}, not only appended to"
+            )
+        tail = cur.clone()
+        tail.snapshot = list(cur.snapshot[n:])
+        tail.commit_op = CommitOp.MERGE  # read the new commits as a merge
+        tail_units = client.get_scan_plan_partitions(
+            self._info.table_name, namespace=self._info.table_namespace, snapshot=[tail])
+
+        def bucket(b):
+            return None if b is None or b < 0 else b
+
+        staged: dict = {}
+        for out in outputs:
+            staged.setdefault(bucket(out.bucket_id), []).append(out)
+        remerge, added, superseded = [], [], []
+        for unit in tail_units:
+            mine = staged.pop(bucket(unit.bucket_id), [])
+            remerge.append(ScanPlanPartition(
+                data_files=[o.path for o in mine] + list(unit.data_files),
+                primary_keys=list(self.primary_keys),
+                bucket_id=unit.bucket_id,
+                partition_desc=unit.partition_desc,
+                partition_values=unit.partition_values,
+                file_sizes=[o.size for o in mine] + list(unit.file_sizes),
+            ))
+            added += unit.data_files
+            superseded += mine
+        try:
+            merged = self._merge_units(remerge)
+        except BaseException:
+            self._delete_staged(outputs)
+            raise
+        self._delete_staged(superseded)  # staged, never committed: nobody else reads them
+        kept = [o for outs in staged.values() for o in outs]
+        return cur, kept + merged, added
 
     # ---------------------------------------------------------- vector index
     def build_vector_index(self, column: str, *, device=None, **config_kwargs) -> int:

@@ -8,11 +8,12 @@ cases, under the reference's case names).
   and the port's :class:`KernelPort`\\ s: the wrapper, its plain PyTorch
   version, the wrapper whose ``launches`` counts its launches, and the
   ``extern "C"`` entry point in ``csrc/`` it launches;
-- :data:`REFERENCE_KERNELS` — the reference's kernels as a static list.
-  The port cannot enumerate the reference's ``pl.pallas_call`` sites itself
-  (the device pack of its analysis is not ported), so a test holds this
-  list against the reference's enumeration, and ``run_smoke`` reports any
-  kernel of it that no case covers (``uncovered``);
+- :data:`REFERENCE_KERNELS` — the reference's kernels as a static list
+  (the port never imports the reference).  A test holds it against the
+  ``pl.pallas_call`` sites that the port's device index enumerates from
+  the reference's text (``analysis/rules/device.py``
+  ``enumerate_pallas_kernels``), and ``run_smoke`` reports any kernel of
+  it that no case covers (``uncovered``);
 - :func:`run_smoke` — on the card (``device=None``), each case launches its
   kernels on seeded inputs (the reference's case inputs) and holds them
   against their plain versions on the same inputs: ``pass``, or ``fail``

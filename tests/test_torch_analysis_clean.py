@@ -1,7 +1,8 @@
 """CI gate for the port: ``lakesoul_tpu_torch`` must lint clean under its
-lakelint's 35 rules (the reference's 40 less the device pack), and its
+lakelint's 40 rules (the reference's 35 host-side rules and the port's own
+device pack, the counterpart of the reference's jit/pallas pack), and its
 lakelint must find over ``lakesoul_tpu/`` what the reference's finds there
-(the counterpart of ``tests/test_analysis_clean.py``).
+under the common rules (the counterpart of ``tests/test_analysis_clean.py``).
 
 ``python -m lakesoul_tpu_torch.analysis`` must exit 0 — no unsuppressed
 finding over the whole package — and the port's baseline must stay honest:
@@ -29,6 +30,9 @@ DEVICE_RULES = {
     "trace-impure-call", "trace-host-sync", "tpu-dtype-width",
     "jit-static-arg-shape", "pallas-blockspec",
 }
+# the port's device pack: CUDA launch safety, one rule for each of the above
+PORT_DEVICE_RULES = ["kernel-abi", "device-host-sync", "kernel-dtype-width",
+                     "launch-shape-unbucketed", "kernel-raw-entry"]
 # the rules whose scopes name a package or the loader module: the port aims
 # them at itself, so over lakesoul_tpu/ they read what the reference's do not
 REAIMED_RULES = {
@@ -76,9 +80,10 @@ def _render(findings) -> str:
 def test_the_35_rules_are_the_references_less_the_device_pack():
     from lakesoul_tpu.analysis.rules import rule_ids as ref_rule_ids
 
-    ids = rule_ids()
+    ids = [r for r in rule_ids() if r not in PORT_DEVICE_RULES]
     assert len(ids) == len(set(ids)) == 35
     assert ids == [r for r in ref_rule_ids() if r not in DEVICE_RULES]
+    assert rule_ids() == ids + PORT_DEVICE_RULES  # 40 rules, the device pack last
     assert REAIMED_RULES <= set(ids) and set().union(*PACKS.values()) <= set(ids)
 
 
@@ -111,15 +116,16 @@ def test_pack_clean_package_wide_without_baseline(port_findings, pack):
 
 
 def test_the_ports_lint_over_the_reference_is_the_references():
-    """Over ``lakesoul_tpu/``, rule for rule: the port's 35 rules find what
-    the reference's same rules find, apart from the re-aimed ones, whose
-    scopes now point at the port (they find nothing there)."""
+    """Over ``lakesoul_tpu/``, rule for rule: the port's 35 common rules
+    find what the reference's same rules find, apart from the re-aimed ones,
+    whose scopes now point at the port (they find nothing there); the port's
+    device pack finds nothing there either (the reference has no csrc/)."""
     from lakesoul_tpu.analysis import Baseline as RefBaseline
     from lakesoul_tpu.analysis import run as ref_run
     from lakesoul_tpu.analysis.rules import all_rules as ref_all_rules
 
     paths = [ROOT / "lakesoul_tpu"]
-    common = set(rule_ids()) - REAIMED_RULES
+    common = set(rule_ids()) - REAIMED_RULES - set(PORT_DEVICE_RULES)
     got, _ = run(paths, root=ROOT, baseline=Baseline([]))
     want, _ = ref_run(paths, root=ROOT, baseline=RefBaseline([]),
                       rules=[r for r in ref_all_rules() if r.id in set(rule_ids())])
@@ -130,6 +136,7 @@ def test_the_ports_lint_over_the_reference_is_the_references():
     assert rows(got, common) == rows(want, common)
     assert rows(got, common), "the reference's own baselined findings are expected"
     assert rows(got, REAIMED_RULES) == []
+    assert rows(got, set(PORT_DEVICE_RULES)) == []
 
 
 def test_the_cli_gate_exits_zero(cli_gate):

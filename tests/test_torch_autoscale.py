@@ -40,6 +40,7 @@ from lakesoul_tpu_torch.fleet import autoscale
 from lakesoul_tpu_torch.obs import fleet as obs_fleet
 from lakesoul_tpu_torch.scanplane.session import ScanSession
 from lakesoul_tpu_torch.scanplane.worker import ScanPlaneWorker
+from lakesoul_tpu_torch.analysis.arm import armed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCHEMA = pa.schema([("id", pa.int64()), ("v", pa.float64()), ("f", pa.float32())])
@@ -385,3 +386,12 @@ def test_the_autoscale_entry_point_backfills_and_leaves_no_child(shared):
         for pid in spawned():
             if _alive(pid):
                 os.kill(pid, signal.SIGKILL)
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

@@ -44,6 +44,7 @@ from lakesoul_tpu_torch.obs import registry
 from lakesoul_tpu_torch.runtime import faults
 from lakesoul_tpu_torch.runtime.resilience import RetryPolicy
 from lakesoul_tpu_torch.sql import SqlSession
+from lakesoul_tpu_torch.analysis.arm import armed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCHEMA = pa.schema([("id", pa.int64()), ("v", pa.float64())])
@@ -421,3 +422,151 @@ def test_run_forever_stops_within_one_tick(shared):
     th.join(5.0)
     assert not th.is_alive() and time.monotonic() - t0 < 2.0
     assert svc.service_id.startswith("compactor-")
+
+
+
+# --------------------------------------------- a compaction beside a hot writer
+# The reference's compaction commit needs the head it read
+# (lakesoul_tpu/meta/client.py, the Compaction branch of _commit_data_once),
+# so a writer that commits more often than one pass takes starves it: the
+# port's compact() catches up, merging again only what the writer added.
+
+
+def _racing(monkeypatch, moves):
+    """Run ``moves`` (callables) one before each compaction commit attempt:
+    each moves the head, so that attempt loses its race.  Returns the head
+    versions the attempts were made against."""
+    from lakesoul_tpu_torch.catalog import LakeSoulTable
+
+    real = LakeSoulTable._commit_staged
+    pending, attempts = list(moves), []
+
+    def racing(self, head, outputs, commit_op, **kw):
+        if commit_op is CommitOp.COMPACTION:
+            attempts.append(head.version)
+            if pending:
+                pending.pop(0)()
+        return real(self, head, outputs, commit_op, **kw)
+
+    monkeypatch.setattr(LakeSoulTable, "_commit_staged", racing)
+    return attempts
+
+
+def _upsert(t, ids, v):
+    return lambda: t.upsert(pa.table({"id": np.asarray(ids, np.int64),
+                                      "v": np.full(len(ids), float(v))}))
+
+
+def _hot_table(tmp_path):
+    cat = LakeSoulCatalog(str(tmp_path / "wh"), db_path=str(tmp_path / "meta.db"))
+    t = cat.create_table("hot", SCHEMA, primary_keys=["id"], hash_bucket_num=2)
+    _stack_versions(t, n=6, rows=8)
+    return cat, t
+
+
+def _parquet_paths(cat) -> set:
+    return {os.path.join(d, f) for d, _, fs in os.walk(cat.warehouse) for f in fs
+            if f.endswith(".parquet")}
+
+
+def _head_paths(cat, t) -> set:
+    store = cat.client.store
+    head = store.get_latest_partition_info(t.info.table_id, "-5")
+    return {op.path for c in store.get_data_commit_info(t.info.table_id, "-5", list(head.snapshot))
+            for op in c.file_ops}
+
+
+def test_a_compaction_catches_up_with_appends_that_land_mid_pass(tmp_path, monkeypatch):
+    cat, t = _hot_table(tmp_path)
+    attempts = _racing(monkeypatch, [_upsert(t, [1, 9], 100.0), _upsert(t, [2], 101.0),
+                                     _upsert(t, [1, 11], 102.0)])
+    rounds = registry().counter("lakesoul_compaction_catch_ups_total")
+    before = rounds.value
+    assert t.compact() == 1
+    assert len(attempts) == 4 and rounds.value - before == 3  # three lost races, then the commit
+    store = cat.client.store
+    head = store.get_latest_partition_info(t.info.table_id, "-5")
+    assert head.commit_op == CommitOp.COMPACTION
+    assert all(u.primary_keys == [] for u in t.scan().scan_plan())  # read without a merge
+    want = {i: 5.0 for i in range(8)}
+    want.update({1: 102.0, 2: 101.0, 9: 100.0, 11: 102.0})
+    got = t.scan().to_arrow().sort_by("id").to_pydict()
+    assert dict(zip(got["id"], got["v"])) == want
+    # every file on disk is the head's or awaits the cleaner: no staged debris
+    discarded = {f for f, _, _ in store.list_discard_files()}
+    assert _parquet_paths(cat) == _head_paths(cat, t) | discarded
+    assert not (_head_paths(cat, t) & discarded)
+
+
+def test_a_writer_that_wins_past_the_bound_makes_it_a_conflict(tmp_path, monkeypatch):
+    """Catch-up is bounded: a writer that lands a commit before each of the
+    pass's ``COMPACT_CATCH_UP`` + 1 commit attempts leaves it the
+    reference's conflict, with what it staged deleted."""
+    from lakesoul_tpu_torch.catalog import COMPACT_CATCH_UP
+    from lakesoul_tpu_torch.errors import CommitConflictError
+
+    cat, t = _hot_table(tmp_path)
+    attempts = _racing(monkeypatch, [_upsert(t, [k], 7.0 + k) for k in range(COMPACT_CATCH_UP + 1)])
+    rounds = registry().counter("lakesoul_compaction_catch_ups_total")
+    before, files = rounds.value, _parquet_paths(cat)
+    with pytest.raises(CommitConflictError):
+        t.compact()
+    assert len(attempts) == COMPACT_CATCH_UP + 1 and rounds.value - before == COMPACT_CATCH_UP
+    # the staged outputs are gone: what is new on disk is the upserts' files
+    assert _parquet_paths(cat) == files | _head_paths(cat, t)
+    assert cat.client.store.get_latest_partition_info(t.info.table_id, "-5").commit_op \
+        is not CommitOp.COMPACTION
+
+
+def test_a_rewrite_mid_pass_is_still_a_conflict(tmp_path, monkeypatch):
+    """Catch-up follows appends and merges only: a DML rewrite (or a delete)
+    replaced the snapshot the pass read, so the job gives up and deletes
+    what it staged."""
+    from lakesoul_tpu_torch.errors import CommitConflictError
+    from lakesoul_tpu_torch.io.filters import col
+
+    cat, t = _hot_table(tmp_path)
+    _racing(monkeypatch, [lambda: t.delete_where(col("id") == 4)])
+    with pytest.raises(CommitConflictError, match="not only appended to"):
+        t.compact()
+    store = cat.client.store
+    discarded = {f for f, _, _ in store.list_discard_files()}
+    assert _parquet_paths(cat) == _head_paths(cat, t) | discarded
+    assert store.get_latest_partition_info(t.info.table_id, "-5").commit_op is CommitOp.UPDATE
+
+
+@pytest.mark.parametrize("past_the_bound", [False, True])
+def test_the_leased_service_keeps_up_with_a_hot_writer(tmp_path, monkeypatch, past_the_bound):
+    """A writer that lands an upsert before each of the job's first five
+    commit attempts: the job commits in its first attempt's catch-up
+    rounds.  One that lands an upsert before every commit attempt of all
+    three tries (each is ``COMPACT_CATCH_UP`` + 1 attempts) outruns the
+    bound: the job gives up, and says so."""
+    from lakesoul_tpu_torch.catalog import COMPACT_CATCH_UP
+
+    cat, t = _hot_table(tmp_path)
+    n = 3 * (COMPACT_CATCH_UP + 1) if past_the_bound else 5
+    _racing(monkeypatch, [_upsert(t, [k % 8], 50.0 + k) for k in range(n)])
+    exhausted = registry().counter("lakesoul_retry_exhausted_total", op="compaction.conflict")
+    before = exhausted.value
+    svc = LeasedCompactionService(cat, service_id="hot", lease_ttl_s=30.0, version_gap=3)
+    out = svc.poll_once()
+    if past_the_bound:
+        assert out["compacted"] == 0 and out["conflicts"] == 1, out
+        assert exhausted.value == before + 1
+    else:
+        assert out["compacted"] == 1 and out["conflicts"] == 0, out
+        assert exhausted.value == before
+    got = t.scan().to_arrow().sort_by("id").to_pydict()
+    want = {i: 5.0 for i in range(8)}
+    want.update({k % 8: 50.0 + k for k in range(n)})
+    assert dict(zip(got["id"], got["v"])) == want
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

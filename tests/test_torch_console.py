@@ -161,7 +161,7 @@ def test_lint_answers_that_the_analysis_package_is_not_ported(tmp_warehouse, lin
         payload = json.loads(got)
         if "sarif" in line:
             assert payload["version"] == "2.1.0" and payload["runs"][0]["results"] == []
-            assert len(payload["runs"][0]["tool"]["driver"]["rules"]) == 35
+            assert len(payload["runs"][0]["tool"]["driver"]["rules"]) == 40
         else:
             assert payload == []
     else:

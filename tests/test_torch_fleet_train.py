@@ -35,6 +35,9 @@ import pytest
 from lakesoul_tpu_torch import LakeSoulCatalog
 from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.fleet.multihost import digest_batch
+from lakesoul_tpu_torch.analysis import fscheck
+from lakesoul_tpu_torch.analysis.arm import armed
+from lakesoul_tpu_torch.runtime import atomicio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = ("lakesoul_tpu", "lakesoul_tpu_torch")
@@ -194,15 +197,15 @@ def _member(spool_dir, *, role, service_id, snapshot, kinds=None, heartbeat_unix
            "started_unix": now - 10.0 if started_unix is None else started_unix,
            "heartbeat_unix": now if heartbeat_unix is None else heartbeat_unix,
            "chips": chips, "kinds": kinds or {}, "snapshot": snapshot}
-    with open(os.path.join(spool_dir, f"member-{service_id}.json"), "w") as f:
-        json.dump(doc, f)
+    atomicio.publish_bytes(os.path.join(spool_dir, f"member-{service_id}.json"),
+                           json.dumps(doc).encode())
 
 
 def _recorder(spool_dir, *, role, service_id, spans=(), pid=1234):
     doc = {"role": role, "service_id": service_id, "pid": pid, "heartbeat_unix": time.time(),
            "reason": "test", "events": [], "spans": list(spans)}
-    with open(os.path.join(spool_dir, f"recorder-{service_id}.json"), "w") as f:
-        json.dump(doc, f)
+    atomicio.publish_bytes(os.path.join(spool_dir, f"recorder-{service_id}.json"),
+                           json.dumps(doc).encode())
 
 
 class _DocSource:
@@ -417,10 +420,12 @@ def test_trace_assembly_and_postmortem(pkg, spool):
 
 
 def test_torn_or_garbage_files_are_skipped(pkg, spool):
-    with open(os.path.join(spool, "member-torn.json"), "w") as f:
-        f.write('{"role": "x", ')
-    with open(os.path.join(spool, "member-list.json"), "w") as f:
-        f.write("[1, 2]")
+    # garbage on purpose, to prove the aggregator skips it: not a publication
+    with fscheck.untraced():
+        with open(os.path.join(spool, "member-torn.json"), "w") as f:
+            f.write('{"role": "x", ')
+        with open(os.path.join(spool, "member-list.json"), "w") as f:
+            f.write("[1, 2]")
     _member(spool, role="ok", service_id="ok1", snapshot={})
     doc = pkg.fleet.FleetAggregator(spool, stale_after_s=30.0).aggregate()
     assert [m["service_id"] for m in doc["members"]] == ["ok1"]
@@ -517,3 +522,12 @@ def test_rss_matches_the_reference():
     assert memory.current_rss_mb() == pytest.approx(ref.current_rss_mb(), rel=0.05)
     assert memory.peak_rss_mb() >= ref.peak_rss_mb() > 0
     assert memory.peak_rss_mb() >= memory.current_rss_mb() * 0.95
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

@@ -51,6 +51,7 @@ from lakesoul_tpu_torch.meta.entity import CommitOp, now_millis
 from lakesoul_tpu_torch.obs import registry
 from lakesoul_tpu_torch.runtime import faults
 from lakesoul_tpu_torch.runtime.resilience import RetryPolicy
+from lakesoul_tpu_torch.analysis.arm import armed
 
 SCHEMA = pa.schema([("id", pa.int64()), ("seq", pa.int64()), ("v", pa.float64())])
 PKGS = ("port", "ref")
@@ -603,3 +604,12 @@ def test_three_roles_in_one_process_hold_both_slos_under_faults(tmp_path, monkey
     assert tput.evaluate()["ok"]
     versions = catalog.client.store.get_partition_versions(t.info.table_id, "-5")
     assert any(v.commit_op == CommitOp.COMPACTION for v in versions)
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

@@ -23,7 +23,10 @@ seam and the checkpointed writer, every module of the compaction package,
 the follower, the writer role, database sync and the autoscaler, and the
 rest of ``service/``: a Flight SQL server answers a query and commits a
 transaction's ingest, the console counts it, and the storage proxy takes
-a PUT, a ranged GET and a listing.
+a PUT, a ranged GET and a listing; the six runtime detectors, armed
+together, see an upsert, a catch-up compaction, a search and an epoch
+record nothing, and the device index of the package finds every entry
+point bound and registered.
 It has to be a subprocess: ``tests/conftest.py`` imports jax into every
 test process.
 """
@@ -70,7 +73,7 @@ def test_blocked_names_are_exact_roots():
 
 _CHILD = textwrap.dedent(
     """
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, os, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "lakesoul_tpu")
 
@@ -245,6 +248,32 @@ _CHILD = textwrap.dedent(
     assert pc.get("default/t/probe.bin", range_header="bytes=1-3") == b"rob"
     assert ("default/t/probe.bin", 5) in pc.list_objects("default/t")
     proxy.stop()
+    for name in ("analysis.lockgraph", "analysis.racecheck", "analysis.leakcheck",
+                 "analysis.fscheck", "analysis.txncheck", "analysis.tracecheck",
+                 "analysis.arm", "analysis.rules.device", "data.ray_adapter",
+                 "data.daft_adapter"):
+        assert f"lakesoul_tpu_torch.{name}" in mods, name
+    from lakesoul_tpu_torch.analysis import fscheck, leakcheck, lockgraph, racecheck
+    from lakesoul_tpu_torch.analysis import tracecheck, txncheck
+    from lakesoul_tpu_torch.analysis.rules.device import index_tree, register_problems
+    dets = (lockgraph, racecheck, leakcheck, fscheck, txncheck, tracecheck)
+    for d in dets:
+        d.reset()
+        d.enable()
+    with leakcheck.scope("isolation") as leak_scope:
+        tbl.upsert(pa.table({"id": np.arange(3, dtype=np.int64), "v": np.ones(3)}))
+        assert tbl.compact() == 1
+        ids_d, _ = idx.search(x[7], SearchParams(top_k=3, nprobe=4, rerank_depth=400))
+        assert sum(len(b["id"]) for b in tbl.scan().batch_size(16).to_torch_iter(
+            device="cpu", drop_remainder=False)) == 53
+    assert fscheck.replay(device="cpu") == [] and txncheck.replay() == []
+    assert leak_scope.leaks == [] and int(ids_d[0]) == 7
+    assert all(d.violations() == [] for d in dets), [d.violations() for d in dets]
+    for d in dets:
+        d.disable()
+        d.reset()
+    import lakesoul_tpu_torch as port_pkg
+    assert register_problems(index_tree(os.path.dirname(port_pkg.__file__))) == []
     if not torch.cuda.is_available():
         for make in (lambda: IvfRabitqIndex(cfg), lambda: AnnPlane.open(root), make_mesh,
                      lambda: MLP(4), lambda: Bert(BertConfig.tiny()),

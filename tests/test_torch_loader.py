@@ -31,6 +31,7 @@ from lakesoul_tpu.tensorplane.columns import tensor_field
 from lakesoul_tpu_torch.data.torch_iter import LoaderCheckpoint
 from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.models import MLP, adam, convert, make_mlp_train_step
+from lakesoul_tpu_torch.analysis.arm import armed
 
 N_ROWS = 1000
 BATCH = 96
@@ -320,3 +321,12 @@ def test_titanic_mlp_from_one_table_agrees_step_by_step(tmp_path):
     assert len(got) == len(want) == 5 * 8
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

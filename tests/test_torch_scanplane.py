@@ -52,6 +52,7 @@ from lakesoul_tpu_torch.scanplane.delivery import ScanPlaneDelivery
 from lakesoul_tpu_torch.scanplane.session import ScanSession, session_request_from_scan
 from lakesoul_tpu_torch.scanplane.worker import ScanPlaneWorker
 from lakesoul_tpu_torch.service.flight import LakeSoulFlightServer
+from lakesoul_tpu_torch.analysis.arm import armed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCHEMA = pa.schema([("id", pa.int64()), ("v", pa.float64()), ("f", pa.float32())])
@@ -370,6 +371,7 @@ def test_default_spools_are_owned_and_only_dead_owners_are_pruned(tmp_path):
     assert left["port"] == left["ref"] == ["lakesoul-scanplane-live",
                                            "lakesoul-scanplane-unmarked", "operator-spool"]
     assert os.path.isdir(mine)
+    shutil.rmtree(mine)  # a live owner's spool is its own to remove, not debris
 
 
 def test_a_pinned_session_that_is_gone_fails_loudly(table, tmp_path):
@@ -586,3 +588,12 @@ def _alive(pid: int) -> bool:
             return f.read().rsplit(")", 1)[1].split()[0] != "Z"
     except OSError:
         return False
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

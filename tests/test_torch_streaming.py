@@ -31,6 +31,7 @@ from lakesoul_tpu_torch import LakeSoulCatalog
 from lakesoul_tpu_torch import streaming
 from lakesoul_tpu_torch.errors import ConfigError
 from lakesoul_tpu_torch.streaming.cdc import checkpoint_commit_id
+from lakesoul_tpu_torch.analysis.arm import armed
 
 PKGS = ("port", "ref")
 CATALOGS = {"port": LakeSoulCatalog, "ref": RefCatalog}
@@ -305,3 +306,12 @@ def test_debezium_refusals_are_the_references(twins):
             got.append(str(e.value))
         msgs[pkg] = got
     assert msgs["port"] == msgs["ref"]
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

@@ -30,6 +30,7 @@ from lakesoul_tpu_torch.errors import ConfigError, VectorIndexError
 from lakesoul_tpu_torch.vector import IvfRabitqIndex, SearchParams, VectorIndexConfig
 from lakesoul_tpu_torch.vector.manifest import ManifestStore
 from lakesoul_tpu_torch.vector.oracle import exact_topk, recall_at_k
+from lakesoul_tpu_torch.analysis.arm import armed
 
 RTOL, ATOL, TIE = 1e-5, 1e-4, 1e-5
 
@@ -286,3 +287,12 @@ def test_untrained_and_bad_shapes_raise():
         IvfRabitqIndex(cfg, device="cpu").search(np.zeros(16, np.float32))
     with pytest.raises(VectorIndexError, match="expected"):
         IvfRabitqIndex.train(np.zeros((4, 8), np.float32), np.arange(4), cfg, device="cpu")
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

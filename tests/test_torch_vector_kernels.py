@@ -24,6 +24,7 @@ from lakesoul_tpu.vector.kernels import (
 )
 from lakesoul_tpu_torch import _build
 from lakesoul_tpu_torch.vector import kernels as K
+from lakesoul_tpu_torch.analysis.arm import armed
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -142,3 +143,12 @@ def test_build_needs_nvcc_and_names_its_sources(monkeypatch, tmp_path):
 
     with pytest.raises(ConfigError, match="nvcc"):
         _build.build()
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()

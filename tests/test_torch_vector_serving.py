@@ -11,6 +11,7 @@ import pytest
 from lakesoul_tpu_torch.errors import OverloadedError, TransientError
 from lakesoul_tpu_torch.obs import registry
 from lakesoul_tpu_torch.vector import AnnEndpoint, IvfRabitqIndex, SearchParams, VectorIndexConfig
+from lakesoul_tpu_torch.analysis.arm import armed
 
 STATS_FIELDS = {"requests", "rejected", "pending", "max_pending", "batches", "mean_batch",
                 "latency_p50", "latency_p99"}
@@ -156,3 +157,12 @@ def test_batch_failure_reaches_every_waiter_and_the_worker_survives():
                 f.result(timeout=10)
         ids, _ = ep.search(np.zeros(4, np.float32), timeout=10)
         assert list(ids) == [0, 1, 2]
+
+
+# the runtime detectors this suite is named for (lakesoul_tpu_torch/analysis/
+# arm.py), when their LAKESOUL_*CHECK variable is set: a violation fails the test
+@pytest.fixture(autouse=True)
+def _detectors():
+    with armed(__name__, device="cpu") as found:
+        yield
+    assert not found, found.render()
