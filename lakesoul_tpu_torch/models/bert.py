@@ -34,6 +34,7 @@ experts are split over ep.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lakesoul_tpu_torch.device import resolve_device
+from lakesoul_tpu_torch.obs.tracing import device_timing, span
 from lakesoul_tpu_torch.parallel.collectives import copy_to, reduce_from
 from lakesoul_tpu_torch.parallel.mesh import DATA_AXES
 from lakesoul_tpu_torch.parallel.moe import init_moe_ffn_params, moe_ffn, moe_param_rules
@@ -49,6 +51,7 @@ from lakesoul_tpu_torch.parallel.moe import init_moe_ffn_params, moe_ffn, moe_pa
 LN_EPS = 1e-6
 MASK_FILL = -1e30
 INIT_STD = 0.02
+_UNTIMED = contextlib.nullcontext()
 
 
 @dataclass(frozen=True)
@@ -230,14 +233,11 @@ def bert_head(model: Bert, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ model.tok_emb.T + model.mlm_bias
 
 
-def bert_forward(model: Bert, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
-                 *, attention_fn=None, with_aux: bool = False, plan=None):
-    """Encoder forward → MLM logits [B, T, vocab] (or (logits, aux) with
-    ``with_aux``: aux is the summed MoE load-balancing loss).
-
-    ``attention_fn(q, k, v, mask)`` defaults to plain full attention; pass
-    ``parallel.make_ring_attention(plan)`` for sequence parallelism.  With
-    ``plan``, ``input_ids`` is this rank's [B/dp, T/sp] block."""
+def bert_encode(model: Bert, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
+                *, attention_fn=None, plan=None):
+    """The encoder, embeddings and layers → (x [B, T, h] in the compute
+    dtype, aux: the summed MoE load-balancing loss).  Arguments as
+    :func:`bert_forward`'s."""
     if attn_mask is None:
         attn_mask = torch.ones(input_ids.shape, dtype=torch.bool, device=input_ids.device)
     attn_mask = attn_mask.bool()
@@ -254,6 +254,18 @@ def bert_forward(model: Bert, input_ids: torch.Tensor, attn_mask: torch.Tensor |
         x, a = bert_layer(x, lp, attn_mask, cfg=model.cfg, attention_fn=attention_fn, plan=plan,
                           token_index=token_index)
         aux = aux + a
+    return x, aux
+
+
+def bert_forward(model: Bert, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
+                 *, attention_fn=None, with_aux: bool = False, plan=None):
+    """Encoder forward → MLM logits [B, T, vocab] (or (logits, aux) with
+    ``with_aux``: aux is the summed MoE load-balancing loss).
+
+    ``attention_fn(q, k, v, mask)`` defaults to plain full attention; pass
+    ``parallel.make_ring_attention(plan)`` for sequence parallelism.  With
+    ``plan``, ``input_ids`` is this rank's [B/dp, T/sp] block."""
+    x, aux = bert_encode(model, input_ids, attn_mask, attention_fn=attention_fn, plan=plan)
     logits = bert_head(model, x)
     return (logits, aux) if with_aux else logits
 
@@ -273,9 +285,39 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor, count=None) -> torch.
 def bert_mlm_loss(model: Bert, input_ids: torch.Tensor, labels: torch.Tensor,
                   attn_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Masked-LM loss: labels < 0 are ignored.  With MoE configs the Switch
-    load-balancing auxiliary joins at ``cfg.moe_aux_weight``."""
-    logits, aux = bert_forward(model, input_ids, attn_mask, with_aux=True)
-    loss = masked_nll(logits, labels)
+    load-balancing auxiliary joins at ``cfg.moe_aux_weight``.
+
+    While a profiler records, the head (its layer norm, the float32 tied
+    product and bias, the cross-entropy) runs in the span ``bert.head``, and
+    its backward, from the loss's gradient to the encoder output's, is the
+    span ``bert.head.backward`` (where both take part in autograd: not
+    under ``torch.no_grad()`` or with the encoder frozen)."""
+    x, aux = bert_encode(model, input_ids, attn_mask)
+    timed = device_timing()
+    with span("bert.head", device=x.device) if timed else _UNTIMED:
+        loss = masked_nll(bert_head(model, x), labels)
+    if timed and loss.requires_grad and x.requires_grad:
+        _span_head_backward(loss, x)
     if model.cfg.n_experts:
         loss = loss + model.cfg.moe_aux_weight * aux
     return loss
+
+
+def _span_head_backward(loss: torch.Tensor, x: torch.Tensor) -> None:
+    """``bert.head.backward`` from two tensor hooks: ``loss``'s gradient
+    opens it, ``x``'s closes it.  Both run where autograd runs the head's
+    nodes (on the card, the engine's thread for the device, where no span is
+    current), so the span is detached and takes as its parent the innermost
+    timed span open on the device: ``train.backward``."""
+    dev = x.device  # the hooks hold no tensor: x's own hook must not keep x alive
+    opened = []
+
+    def begin(grad):
+        opened.append(span("bert.head.backward", device=dev, detached=True).__enter__())
+
+    def end(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    loss.register_hook(begin)
+    x.register_hook(end)

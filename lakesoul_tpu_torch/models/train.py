@@ -24,9 +24,16 @@ programs over global arrays, so every reduction there is global; here:
   global token order and capacity, ResNet's global batch norm — happens
   inside the models (``models/bert.py``, ``models/resnet.py``,
   ``parallel/``).
+
+While a ``torch.profiler`` records, the single-device step opens the spans
+``train.step`` and, inside it, ``train.forward``, ``train.backward`` and
+``train.optimizer``, timed on the card by events (``obs/tracing.py``); with
+no profiler it reads that one flag and makes no span, event or hook.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -46,6 +53,7 @@ from lakesoul_tpu_torch.models.bert import (
 from lakesoul_tpu_torch.models.convert import load_local, pipeline_rules, shard_params
 from lakesoul_tpu_torch.models.mlp import mlp_forward, mlp_loss
 from lakesoul_tpu_torch.models.resnet import resnet_forward, resnet_loss
+from lakesoul_tpu_torch.obs.tracing import device_timing, span
 from lakesoul_tpu_torch.parallel.collectives import all_reduce_
 from lakesoul_tpu_torch.parallel.mesh import DATA_AXES
 from lakesoul_tpu_torch.parallel.pipeline import (
@@ -59,6 +67,7 @@ from lakesoul_tpu_torch.parallel.ulysses import make_ulysses_attention
 BETAS, EPS = (0.9, 0.999), 1e-8  # optax.adam / optax.adamw defaults
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 SEQUENCE_PARALLEL = ("ring", "ulysses")
+_UNTIMED = contextlib.nullcontext()
 
 
 def adam(params, lr: float) -> torch.optim.Adam:
@@ -87,11 +96,20 @@ def _make_step(model: torch.nn.Module, opt: torch.optim.Optimizer, loss_fn, devi
     _check_device(model, dev)
 
     def step(*batch) -> torch.Tensor:
-        batch = [torch.as_tensor(b).to(dev, non_blocking=True) for b in batch]
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, *batch)
-        loss.backward()
-        opt.step()
+        timed = device_timing()
+
+        def phase(name):
+            return span(name, device=dev) if timed else _UNTIMED
+
+        with phase("train.step"):
+            batch = [torch.as_tensor(b).to(dev, non_blocking=True) for b in batch]
+            opt.zero_grad(set_to_none=True)
+            with phase("train.forward"):
+                loss = loss_fn(model, *batch)
+            with phase("train.backward"):
+                loss.backward()
+            with phase("train.optimizer"):
+                opt.step()
         return loss.detach()
 
     return step
