@@ -14,7 +14,9 @@ The reference's numerics, kept where torch's defaults differ:
   v's dtype, P·V accumulated in float32;
 - params are float32 masters; q/k/v/o and the FFN cast theirs to the compute
   dtype inside the layer; the MLM head is tied to ``tok_emb`` in float32;
-- ``masked_nll`` ignores labels < 0 and divides by max(count, 1).
+- ``masked_nll`` ignores labels < 0 and divides by max(count, 1); the
+  training loss, ``bert_mlm_loss``, runs the head at the labelled positions
+  alone, which gives the same loss.
 
 The reference stacks its layers on a leading axis for one ``lax.scan``;
 here they are ``layers.{i}`` modules (``models/convert.py`` moves between
@@ -228,7 +230,8 @@ def bert_embed(model: Bert, input_ids: torch.Tensor, pos_offset: int = 0) -> tor
 
 
 def bert_head(model: Bert, x: torch.Tensor) -> torch.Tensor:
-    """Weight-tied MLM head → logits [B, T, vocab] float32."""
+    """Weight-tied MLM head: x [..., h] → logits [..., vocab] float32 (from
+    :func:`bert_forward`, [B, T, vocab])."""
     x = layer_norm(x, model.mlm_ln)
     return x.float() @ model.tok_emb.T + model.mlm_bias
 
@@ -287,20 +290,62 @@ def bert_mlm_loss(model: Bert, input_ids: torch.Tensor, labels: torch.Tensor,
     """Masked-LM loss: labels < 0 are ignored.  With MoE configs the Switch
     load-balancing auxiliary joins at ``cfg.moe_aux_weight``.
 
-    While a profiler records, the head (its layer norm, the float32 tied
-    product and bias, the cross-entropy) runs in the span ``bert.head``, and
-    its backward, from the loss's gradient to the encoder output's, is the
-    span ``bert.head.backward`` (where both take part in autograd: not
-    under ``torch.no_grad()`` or with the encoder frozen)."""
+    The head runs only at the K labelled positions: their rows of the
+    encoder's output are gathered, and the head's layer norm, float32 tied
+    product, bias and cross-entropy see those rows alone, the loss divided
+    by max(K, 1) as :func:`masked_nll`'s.  Every part of the head acts row
+    by row, so the loss and every gradient are the full logits' up to the
+    order of float32 sums; the gather's backward adds each labelled row's
+    gradient once onto zeros.  K reaches the host without a synchronise
+    (:func:`_labelled_rows`); the host reads it before ``bert.head`` opens,
+    so that span does not time the wait.
+
+    While a profiler records, the head (the gather, its layer norm, the
+    float32 tied product and bias, the cross-entropy) runs in the span
+    ``bert.head``, and its backward, from the loss's gradient to the encoder
+    output's, is the span ``bert.head.backward`` (where both take part in
+    autograd: not under ``torch.no_grad()`` or with the encoder frozen)."""
+    rows = _labelled_rows(labels)
     x, aux = bert_encode(model, input_ids, attn_mask)
+    index = rows()
     timed = device_timing()
     with span("bert.head", device=x.device) if timed else _UNTIMED:
-        loss = masked_nll(bert_head(model, x), labels)
+        loss = masked_nll(bert_head(model, x.flatten(0, -2).index_select(0, index)),
+                          labels.flatten().index_select(0, index))
     if timed and loss.requires_grad and x.requires_grad:
         _span_head_backward(loss, x)
     if model.cfg.n_experts:
         loss = loss + model.cfg.moe_aux_weight * aux
     return loss
+
+
+def _labelled_rows(labels: torch.Tensor):
+    """Enqueue the flat indices of the labelled positions (labels >= 0), in
+    order: the first K of a stable sort of the unlabelled flag, K their
+    count.  → ``rows()``, which gives those K indices.
+
+    Call it before the encoder's forward.  On the card the count is copied
+    to a pinned host scalar behind an event, and ``rows()`` waits on that
+    event alone: by then the encoder's forward is queued behind it, so the
+    card keeps working while the host reads K and enqueues the head and the
+    backward.  A ``nonzero`` or boolean index would wait for the card's
+    whole queue instead."""
+    unlabelled = labels.flatten() < 0
+    order = torch.argsort(unlabelled.to(torch.uint8), stable=True)
+    count = unlabelled.numel() - unlabelled.sum()
+    if not labels.is_cuda:
+        k = int(count)
+        return lambda: order[:k]
+    host = torch.empty((), dtype=count.dtype, pin_memory=True)
+    host.copy_(count, non_blocking=True)
+    counted = torch.cuda.Event()
+    counted.record(torch.cuda.current_stream(labels.device))
+
+    def rows() -> torch.Tensor:
+        counted.synchronize()
+        return order[:int(host)]
+
+    return rows
 
 
 def _span_head_backward(loss: torch.Tensor, x: torch.Tensor) -> None:

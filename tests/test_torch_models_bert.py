@@ -219,6 +219,52 @@ def test_moe_weights_cross_bit_for_bit(moe_reference):
         np.testing.assert_array_equal(convert._flatten(back)[k], v, err_msg=k)
 
 
+def _labels(case: str):
+    ids, labels, mask = _batch()
+    if case == "none":
+        labels = np.full_like(labels, -100)
+    elif case in ("every", "one_row_unlabelled"):
+        labels = ids.copy()
+        if case == "one_row_unlabelled":
+            labels[1] = -100
+    return ids, labels, mask
+
+
+@pytest.mark.parametrize("case", ["mask_15", "none", "every", "one_row_unlabelled", "moe"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_loss_path_heads_only_the_labelled_rows_as_the_full_logits_do(dtype, case):
+    """``bert_mlm_loss`` gathers the labelled rows before the head; its loss
+    and every leaf's gradient are the full logits' (``bert_forward`` and
+    ``masked_nll``, the MoE term added alike) to float32 rounding: the head
+    acts row by row, only the order of float32 sums differs.  ``mask_15``
+    has the fully padded row 2 with no label; with none labelled the loss is
+    0 and every gradient finite."""
+    cfg = _moe_cfg(dtype) if case == "moe" else _cfg(dtype)
+    ids, labels, mask = _labels(case)
+
+    def loss_and_grads(gathered: bool):
+        m = TB.Bert(cfg, seed=5, device="cpu")
+        if gathered:
+            loss = TB.bert_mlm_loss(m, _t(ids), _t(labels), _t(mask))
+        else:
+            logits, aux = TB.bert_forward(m, _t(ids), _t(mask), with_aux=True)
+            loss = TB.masked_nll(logits, _t(labels))
+            if cfg.n_experts:
+                loss = loss + cfg.moe_aux_weight * aux
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in m.named_parameters()}
+
+    (loss, grads), (want_loss, want) = loss_and_grads(True), loss_and_grads(False)
+    if case == "none":
+        assert float(loss) == 0.0
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    assert grads.keys() == want.keys()
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), k
+        torch.testing.assert_close(g, want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()),
+                                   msg=k)
+
+
 @pytest.fixture(scope="module")
 def reference():
     """The port's init carried to the reference's tree; the reference's
