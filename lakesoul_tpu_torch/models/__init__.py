@@ -8,6 +8,11 @@ the weight converters to and from the JAX package's param trees
 ``plan`` (data, tensor, sequence, expert and pipeline parallel, over
 ``parallel/``).  Not yet: sharded checkpoints (``torch.distributed.checkpoint``).
 
+Beyond the reference: a DeepSeek-V3 decoder at Moonlight-16B-A3B's widths
+(``deepseek``: MLA, a dense SwiGLU layer, then dropless top-k MoE layers that
+hold a rank's share of the routed experts, ``parallel/experts.py``) with
+its next-token step (``make_lm_train_state`` / ``make_lm_train_step``).
+
 The reference computes its models with plain ``jnp`` / ``lax`` ops and no
 Pallas kernel, so the port computes them with torch ops: no hand kernel.
 """
@@ -22,6 +27,7 @@ from lakesoul_tpu_torch.models.bert import (
 )
 from lakesoul_tpu_torch.models.checkpoint import TrainCheckpointer
 from lakesoul_tpu_torch.models.convert import from_reference_params, to_reference_params
+from lakesoul_tpu_torch.models.deepseek import Deepseek, DeepseekConfig, lm_loss
 from lakesoul_tpu_torch.models.mlp import MLP, mlp_forward, mlp_loss
 from lakesoul_tpu_torch.models.resnet import ResNet, ResNetConfig, resnet_forward, resnet_loss
 from lakesoul_tpu_torch.models.train import (
@@ -31,6 +37,8 @@ from lakesoul_tpu_torch.models.train import (
     make_bert_pipeline_train_step,
     make_bert_train_state,
     make_bert_train_step,
+    make_lm_train_state,
+    make_lm_train_step,
     make_mlp_train_step,
     make_resnet_train_step,
     sgd,
@@ -45,5 +53,6 @@ __all__ = [
     "make_mlp_train_step", "make_resnet_train_step",
     "make_bert_train_state", "make_bert_train_step",
     "make_bert_pipeline_train_state", "make_bert_pipeline_train_step",
+    "Deepseek", "DeepseekConfig", "lm_loss", "make_lm_train_state", "make_lm_train_step",
     "TrainCheckpointer", "from_reference_params", "to_reference_params",
 ]

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lakesoul_tpu_torch.device import resolve_device
-from lakesoul_tpu_torch.obs.tracing import device_timing, span
+from lakesoul_tpu_torch.obs.tracing import device_timing, span, span_backward
 from lakesoul_tpu_torch.parallel.collectives import copy_to, reduce_from
 from lakesoul_tpu_torch.parallel.mesh import DATA_AXES
 from lakesoul_tpu_torch.parallel.moe import init_moe_ffn_params, moe_ffn, moe_param_rules
@@ -313,7 +313,7 @@ def bert_mlm_loss(model: Bert, input_ids: torch.Tensor, labels: torch.Tensor,
         loss = masked_nll(bert_head(model, x.flatten(0, -2).index_select(0, index)),
                           labels.flatten().index_select(0, index))
     if timed and loss.requires_grad and x.requires_grad:
-        _span_head_backward(loss, x)
+        span_backward("bert.head.backward", loss, x)
     if model.cfg.n_experts:
         loss = loss + model.cfg.moe_aux_weight * aux
     return loss
@@ -346,23 +346,3 @@ def _labelled_rows(labels: torch.Tensor):
         return order[:int(host)]
 
     return rows
-
-
-def _span_head_backward(loss: torch.Tensor, x: torch.Tensor) -> None:
-    """``bert.head.backward`` from two tensor hooks: ``loss``'s gradient
-    opens it, ``x``'s closes it.  Both run where autograd runs the head's
-    nodes (on the card, the engine's thread for the device, where no span is
-    current), so the span is detached and takes as its parent the innermost
-    timed span open on the device: ``train.backward``."""
-    dev = x.device  # the hooks hold no tensor: x's own hook must not keep x alive
-    opened = []
-
-    def begin(grad):
-        opened.append(span("bert.head.backward", device=dev, detached=True).__enter__())
-
-    def end(grad):
-        if opened:
-            opened.pop().__exit__(None, None, None)
-
-    loss.register_hook(begin)
-    x.register_hook(end)

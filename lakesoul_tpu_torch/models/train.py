@@ -51,6 +51,7 @@ from lakesoul_tpu_torch.models.bert import (
     param_sharding_rules,
 )
 from lakesoul_tpu_torch.models.convert import load_local, pipeline_rules, shard_params
+from lakesoul_tpu_torch.models.deepseek import Deepseek, DeepseekConfig, lm_loss
 from lakesoul_tpu_torch.models.mlp import mlp_forward, mlp_loss
 from lakesoul_tpu_torch.models.resnet import resnet_forward, resnet_loss
 from lakesoul_tpu_torch.obs.tracing import device_timing, span
@@ -91,7 +92,10 @@ def _check_device(model: torch.nn.Module, dev: torch.device) -> None:
         raise ConfigError(f"the model's params are on {wrong}, the step's device is {dev}")
 
 
-def _make_step(model: torch.nn.Module, opt: torch.optim.Optimizer, loss_fn, device):
+def _make_step(model: torch.nn.Module, opt: torch.optim.Optimizer, loss_fn, device,
+               after_update=None):
+    """``after_update()``, where given, runs after the optimizer's step,
+    inside ``train.optimizer``: a state change that takes no gradient."""
     dev = resolve_device(device)
     _check_device(model, dev)
 
@@ -110,6 +114,8 @@ def _make_step(model: torch.nn.Module, opt: torch.optim.Optimizer, loss_fn, devi
                 loss.backward()
             with phase("train.optimizer"):
                 opt.step()
+                if after_update is not None:
+                    after_update()
         return loss.detach()
 
     return step
@@ -244,6 +250,19 @@ def make_bert_train_step(model: Bert, opt, *, plan=None, sequence_parallel: str 
         return loss
 
     return _make_plan_step(model, opt, share, group, plan)
+
+
+def make_lm_train_state(cfg: DeepseekConfig, *, lr: float = 1e-4, seed: int = 0, device=None):
+    """→ (model, optimizer): ``Deepseek(cfg)`` and ``adamw(lr)``."""
+    model = Deepseek(cfg, seed=seed, device=device)
+    return model, adamw(model.parameters(), lr)
+
+
+def make_lm_train_step(model: Deepseek, opt, *, device=None):
+    """``step(tokens) → loss``: the next-token step of ``lm_loss``; after
+    the optimizer's update, every MoE layer's selection bias moves by the
+    load of the step's forward (``Deepseek.update_selection_bias``)."""
+    return _make_step(model, opt, lm_loss, device, after_update=model.update_selection_bias)
 
 
 def make_bert_pipeline_train_state(cfg: BertConfig, plan, *, lr: float = 1e-4, seed: int = 0):

@@ -66,6 +66,7 @@ __all__ = [
     "ENV_TRACE_ID",
     "Span",
     "span",
+    "span_backward",
     "ambient_trace_id",
     "current_span",
     "current_trace_id",
@@ -367,6 +368,27 @@ def span(
     work is timed by events while a profiler records (the module's
     docstring)."""
     return Span(name, trace_id=trace_id, detached=detached, device=device, **attrs)
+
+
+def span_backward(name: str, out, inp) -> None:
+    """The span ``name`` over the backward of the computation from tensor
+    ``inp`` to tensor ``out``, from two tensor hooks: ``out``'s gradient
+    opens it, ``inp``'s closes it.  Both run where autograd runs those nodes
+    (on a CUDA device, the engine's thread for it, where no span is
+    current), so the span is detached and takes as its parent the innermost
+    timed span open on the device (a training step's ``train.backward``)."""
+    dev = inp.device  # the hooks hold no tensor: inp's own hook must not keep it alive
+    opened = []
+
+    def begin(grad):
+        opened.append(span(name, device=dev, detached=True).__enter__())
+
+    def end(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(begin)
+    inp.register_hook(end)
 
 
 def _cuda_index(device) -> int | None:
